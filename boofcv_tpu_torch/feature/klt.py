@@ -5,11 +5,18 @@ Reference analog: boofcv-feature alg/tracker/klt/KltTracker.java:55
 (coarse-to-fine), KltTrackFault.java (fault codes).
 
 Only the ``"windowed"`` level method is ported: each level gathers every
-track's 24x16 neighbourhood once through the window-gather kernel, then
-each Gauss-Newton iteration resamples the patch inside that window.  The
-reference's early-exit ``while_loop`` becomes a fixed ``max_iterations``
-loop with a per-track frozen flag: converged tracks already take zero steps
-there, so the results are the same and the loop needs no host sync.
+track's 24x16 neighbourhood once, then each Gauss-Newton iteration
+resamples the patch inside that window.
+
+:func:`track_pyramid` dispatches by device, never by failure.  CUDA
+tensors go to one launch of ``kernels/csrc/klt_track.cu``, which keeps each
+track's window in shared memory and runs every level's iterations there.
+CPU tensors take :func:`track_pyramid_reference`, the plain PyTorch version
+of the same function: it gathers the windows through
+``kernels.window_gather`` and turns the reference's early-exit
+``while_loop`` into a fixed ``max_iterations`` loop with a per-track frozen
+flag (converged tracks already take zero steps there, so the results are
+the same).
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from boofcv_tpu_torch.ip.interpolate import sample_rect_bilinear_multi
+from boofcv_tpu_torch.kernels.klt_track import klt_track_cuda
 from boofcv_tpu_torch.kernels.window_gather import (aligned_window_origin,
                                                     gather_windows)
 
@@ -144,18 +152,12 @@ def _track_level_windowed(image, desc, gx, gy, cy, cx, cfg: KltConfig):
     return cy_out, cx_out, fault
 
 
-def track_pyramid(pyramid: Sequence[torch.Tensor], templates: KltTemplates,
-                  ys: torch.Tensor, xs: torch.Tensor,
-                  scales: Sequence[int], cfg: KltConfig):
-    """Coarse-to-fine tracking of all N features (PyramidKltTracker.track).
-
-    ys/xs: [N] full-resolution positions.  Returns (ys, xs, fault), fault
-    the worst seen at any level."""
-    if cfg.method != "windowed":
-        raise ValueError(
-            f"KltConfig.method {cfg.method!r} is not ported: only "
-            "'windowed' is (the 'gather' method is listed in ROADMAP.md, "
-            "queue 1)")
+def track_pyramid_reference(pyramid: Sequence[torch.Tensor],
+                            templates: KltTemplates, ys: torch.Tensor,
+                            xs: torch.Tensor, scales: Sequence[int],
+                            cfg: KltConfig):
+    """The plain PyTorch version of :func:`track_pyramid` (windowed
+    method), level by level, on whatever device the tensors lie."""
     n = ys.shape[0]
     fault = torch.full((n,), TRACK_OK, dtype=torch.int32, device=ys.device)
     cy = ys / scales[-1]
@@ -172,4 +174,29 @@ def track_pyramid(pyramid: Sequence[torch.Tensor], templates: KltTemplates,
             ratio = scales[lvl] / scales[lvl - 1]
             cy = cy * ratio
             cx = cx * ratio
+    return cy, cx, fault
+
+
+def track_pyramid(pyramid: Sequence[torch.Tensor], templates: KltTemplates,
+                  ys: torch.Tensor, xs: torch.Tensor,
+                  scales: Sequence[int], cfg: KltConfig):
+    """Coarse-to-fine tracking of all N features (PyramidKltTracker.track).
+
+    ys/xs: [N] full-resolution positions.  Returns (ys, xs, fault), fault
+    the worst seen at any level.  CPU tensors take the plain version; CUDA
+    tensors one launch of the ``klt_track`` kernel."""
+    if cfg.method != "windowed":
+        raise ValueError(
+            f"KltConfig.method {cfg.method!r} is not ported: only "
+            "'windowed' is (the 'gather' method is listed in ROADMAP.md, "
+            "queue 1)")
+    if ys.device.type == "cpu":
+        return track_pyramid_reference(pyramid, templates, ys, xs, scales,
+                                       cfg)
+    f32 = lambda t: t.to(torch.float32).contiguous()
+    cy, cx, fault, _ = klt_track_cuda(
+        [f32(p) for p in pyramid], [f32(t) for t in templates.desc],
+        [f32(t) for t in templates.grad_x], [f32(t) for t in templates.grad_y],
+        f32(ys), f32(xs), scales, cfg.template_radius, cfg.max_iterations,
+        cfg.max_per_pixel_error, cfg.min_determinant, cfg.convergence_tol)
     return cy, cx, fault

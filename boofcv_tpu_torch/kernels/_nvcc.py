@@ -25,7 +25,9 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 
 ARCH_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a",)
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
-                           "-fPIC")
+                           "-fPIC", "-Xptxas", "-v")
+# per-source additions; each source's header says why
+EXTRA_FLAGS = {"klt_track": ("-fmad=false",)}
 
 # name -> (ctypes.CDLL, build record); filled at first use
 _LIBS: dict = {}
@@ -49,17 +51,18 @@ def load_library(name: str):
     if name in _LIBS:
         return _LIBS[name][0]
     src = os.path.join(CSRC_DIR, f"{name}.cu")
+    flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
     record = {"name": name, "source": src, "library": out,
-              "arch_flags": list(ARCH_FLAGS), "built": False,
-              "build_s": 0.0}
+              "arch_flags": list(ARCH_FLAGS), "flags": list(flags),
+              "built": False, "build_s": 0.0, "ptxas": ""}
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+        cmd = [_find_nvcc(), *flags, "-o", tmp, src]
         t0 = time.perf_counter()
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -72,6 +75,8 @@ def load_library(name: str):
             if os.path.exists(tmp):
                 os.remove(tmp)
         record["built"] = True
+        # registers, shared memory and spills of each kernel (-Xptxas -v)
+        record["ptxas"] = proc.stderr.strip()
         record["build_s"] = time.perf_counter() - t0
     lib = ctypes.CDLL(out)
     _LIBS[name] = (lib, record)
@@ -80,5 +85,6 @@ def load_library(name: str):
 
 def build_record(name: str) -> dict:
     """What :func:`load_library` did for ``name``: library path, arch
-    flags, whether it compiled in this process and how long it took."""
+    flags, all nvcc flags, whether it compiled in this process, how long
+    it took and what ptxas reported."""
     return dict(_LIBS[name][1])

@@ -22,6 +22,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from boofcv_tpu_torch._config import resolve_device
 from boofcv_tpu_torch.core.pyramid import PyramidConfig
 from boofcv_tpu_torch.feature import disparity as disp_mod
 from boofcv_tpu_torch.feature import extract, intensity, klt
@@ -77,10 +78,12 @@ def _fork(g: torch.Generator) -> torch.Generator:
 
 
 def init_state(cfg: StereoVoConfig, height: int, width: int, seed: int = 0,
-               device="cpu") -> StereoVoState:
+               device=None) -> StereoVoState:
+    """An empty track pool on ``device`` (None: the card; raises without
+    one)."""
     n = cfg.num_tracks
     p = 2 * cfg.template_radius + 1
-    dev = torch.device(device)
+    dev = resolve_device(device)
     zero_t = tuple(torch.zeros((n, p, p), dtype=torch.float32, device=dev)
                    for _ in cfg.pyramid_scales)
     return StereoVoState(
@@ -102,13 +105,14 @@ def _key_to_seed(key) -> int:
     return int((int(k[0]) << 32) | int(k[1]))
 
 
-def state_from_numpy(d: dict, device="cpu") -> StereoVoState:
+def state_from_numpy(d: dict, device=None) -> StereoVoState:
     """Build the port's state from numpy arrays named like the reference's
     ``StereoVoState`` fields (``templates`` as a dict of per-level lists
     ``desc`` / ``grad_x`` / ``grad_y``).  The reference's ``key`` maps to a
     seed and the generator is rebuilt from it; an ``rng_state`` entry
-    (written by :func:`state_to_numpy`) restores the generator exactly."""
-    dev = torch.device(device)
+    (written by :func:`state_to_numpy`) restores the generator exactly.
+    ``device`` None means the card, and raises without one."""
+    dev = resolve_device(device)
 
     def f(a, dtype):
         return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
@@ -352,12 +356,13 @@ def bootstrap(state: StereoVoState, left, right, rectK, baseline,
 
 class StereoVisualOdometry:
     """Host-facing front end (StereoVisualOdometry analog): owns the state on
-    ``device``, exposes process(left, right) -> bool and the pose."""
+    ``device`` (None: the card; raises without one), exposes
+    process(left, right) -> bool and the pose."""
 
     def __init__(self, cfg: StereoVoConfig, rectK, baseline: float,
-                 height: int, width: int, seed: int = 0, device="cpu"):
+                 height: int, width: int, seed: int = 0, device=None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.baseline = float(baseline)
         self._step = make_step(cfg, rectK, baseline)
         self._boot = make_bootstrap(cfg, rectK, baseline)

@@ -100,7 +100,7 @@ def test_bootstrap_matches_jax(scene, jax_run):
     1e-6 (float64 lift of float32 subpixel disparities)."""
     _, frames = scene
     ref = _to_numpy_state(jax_run[0][0])
-    s = tvo.bootstrap(tvo.init_state(TCFG, H, W),
+    s = tvo.bootstrap(tvo.init_state(TCFG, H, W, device="cpu"),
                       torch.from_numpy(frames[0][0]),
                       torch.from_numpy(frames[0][1]), K, BASELINE, TCFG)
     out = tvo.state_to_numpy(s)
@@ -117,10 +117,12 @@ def test_bootstrap_matches_jax(scene, jax_run):
 
 
 def test_state_numpy_roundtrip(jax_run):
-    boot = tvo.state_from_numpy(_to_numpy_state(jax_run[0][0]))
+    boot = tvo.state_from_numpy(_to_numpy_state(jax_run[0][0]),
+                                device="cpu")
     assert boot.rng.initial_seed() == 0     # PRNGKey(0) -> seed 0
-    s = tvo.state_from_numpy(_to_numpy_state(jax_run[0][1]))
-    back = tvo.state_to_numpy(tvo.state_from_numpy(tvo.state_to_numpy(s)))
+    s = tvo.state_from_numpy(_to_numpy_state(jax_run[0][1]), device="cpu")
+    back = tvo.state_to_numpy(
+        tvo.state_from_numpy(tvo.state_to_numpy(s), device="cpu"))
     ref = tvo.state_to_numpy(s)
     for k in ("xs", "ys", "world", "alive", "R", "t", "uid", "next_uid",
               "key", "rng_state"):
@@ -139,7 +141,7 @@ def test_track_from_converted_state_matches_jax(scene, jax_run):
                                     JCFG.pyramid_scales, JCFG.klt)
     jtracked = np.asarray(js.alive) & (np.asarray(jf) == jklt.TRACK_OK)
 
-    ts = tvo.state_from_numpy(_to_numpy_state(js))
+    ts = tvo.state_from_numpy(_to_numpy_state(js), device="cpu")
     tp = tpyr.pyramid_average(torch.from_numpy(left).float(),
                               PyramidConfig(TCFG.pyramid_scales))
     ty, tx, tf = tklt.track_pyramid(tp, ts.templates, ts.ys, ts.xs,
@@ -164,7 +166,7 @@ def test_track_from_converted_state_matches_jax(scene, jax_run):
 @pytest.fixture(scope="module")
 def torch_run(scene):
     poses, frames = scene
-    vo = tvo.StereoVisualOdometry(TCFG, K, BASELINE, H, W)
+    vo = tvo.StereoVisualOdometry(TCFG, K, BASELINE, H, W, device="cpu")
     oks, centres, rots = [], [], []
     for left, right in frames:
         oks.append(vo.process(left, right))
@@ -204,7 +206,7 @@ def test_sequence_runner_matches_stepwise(scene):
     """make_sequence_runner is the step in a loop: identical results."""
     _, frames = scene
     boot = tvo.make_bootstrap(TCFG, K, BASELINE)
-    s0 = boot(tvo.init_state(TCFG, H, W, seed=3),
+    s0 = boot(tvo.init_state(TCFG, H, W, seed=3, device="cpu"),
               torch.from_numpy(frames[0][0]), torch.from_numpy(frames[0][1]))
     step = tvo.make_step(TCFG, K, BASELINE)
     s = s0
@@ -224,9 +226,33 @@ def test_sequence_runner_matches_stepwise(scene):
     assert bool(ms["pose_ok"].all())
 
 
+@pytest.mark.parametrize("entry", ["init_state", "state_from_numpy",
+                                   "StereoVisualOdometry"])
+def test_default_device_is_the_card(entry, monkeypatch):
+    """With no ``device`` the entry points run on the card: without one
+    they raise a RuntimeError that names CUDA, and move nothing to the
+    CPU; with ``device="cpu"`` they behave as before."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = tvo.StereoVoConfig(num_tracks=8, pyramid_scales=(1, 2))
+    calls = {
+        "init_state": lambda **kw: tvo.init_state(small, H, W, **kw),
+        "state_from_numpy": lambda **kw: tvo.state_from_numpy(
+            tvo.state_to_numpy(tvo.init_state(small, H, W, device="cpu")),
+            **kw),
+        "StereoVisualOdometry": lambda **kw: tvo.StereoVisualOdometry(
+            small, K, BASELINE, H, W, **kw).state,
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+    state = calls[entry](device="cpu")
+    assert state.xs.device.type == "cpu" and state.xs.shape == (8,)
+    assert state.rng.device.type == "cpu"
+
+
 def test_port_imports_no_jax():
     code = ("import sys, boofcv_tpu_torch.sfm.stereo_vo, "
-            "boofcv_tpu_torch.io.simulate, boofcv_tpu_torch.kernels._nvcc; "
+            "boofcv_tpu_torch.io.simulate, boofcv_tpu_torch.kernels._nvcc, "
+            "boofcv_tpu_torch.kernels.klt_track; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'boofcv_tpu.'))); print(bad); "
             "sys.exit(1 if bad else 0)")
