@@ -50,3 +50,14 @@ def pad(image: torch.Tensor, radius_y: int, radius_x: int,
     out = F.pad(chw[None], (radius_x, radius_x, radius_y, radius_y),
                 mode=mode)[0]
     return out[0] if image.dim() == 2 else out.permute(1, 2, 0)
+
+
+def pad_planes(image: torch.Tensor, radius_y: int, radius_x: int,
+               border: BorderType = BorderType.EXTENDED) -> torch.Tensor:
+    """:func:`pad` for [..., H, W]: every leading axis counts planes (the
+    streams of a batched step), never channels-last."""
+    h, w = image.shape[-2:]
+    out = F.pad(image.reshape(1, -1, h, w),
+                (radius_x, radius_x, radius_y, radius_y),
+                mode=pad_mode(border))
+    return out.reshape(image.shape[:-2] + out.shape[-2:])

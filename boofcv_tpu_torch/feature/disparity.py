@@ -9,6 +9,9 @@ the window-gather kernel with ``2*ry+1`` rows starting at ``ys - ry``: the
 kernel's row clamp reproduces the reference's per-row clip, and its column
 clamp reads edge pixels that are then masked, so each out-of-image column
 adds 1e6 per element as in the reference.
+
+One stream ([h, w] images, [N] locations) or B streams ([B, h, w],
+[B, N]): two launches of the kernel either way.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from boofcv_tpu_torch.kernels.window_gather import gather_windows
+from boofcv_tpu_torch.kernels.window_gather import as_planes, gather_windows
 
 
 class DisparityConfig(NamedTuple):
@@ -32,8 +35,8 @@ class DisparityConfig(NamedTuple):
 
 
 def _sparse_costs_sad(left, right, ys, xs, cfg: DisparityConfig):
-    """[N, D] SAD cost table; cost index d scores disparity min + d."""
-    h, w = left.shape
+    """[..., N, D] SAD cost table; cost index d scores disparity min + d."""
+    w = left.shape[-1]
     rx, ry = cfg.radius_x, cfg.radius_y
     n_disp = cfg.max_disparity - cfg.min_disparity
     p = 2 * rx + 1
@@ -46,14 +49,14 @@ def _sparse_costs_sad(left, right, ys, xs, cfg: DisparityConfig):
     strip = gather_windows(right, oy, x0, ph, wide_w)   # [N, PH, W']
     patch_l = gather_windows(left, oy, (xs - rx).contiguous(), ph, p)
 
-    cols = x0[:, None] + torch.arange(wide_w, device=left.device)[None, :]
+    cols = x0[..., None] + torch.arange(wide_w, device=left.device)
     colb = (cols >= 0) & (cols < w)                     # [N, W']
     # window for disparity index d starts at strip column n_disp - 1 - d
-    sl = strip.unfold(2, p, 1).flip(2)                  # [N, PH, D, P]
-    inb = colb.unfold(1, p, 1).flip(1)                  # [N, D, P]
-    e = torch.abs(patch_l[:, :, None, :] - sl).permute(0, 2, 1, 3)
-    e = torch.where(inb[:, :, None, :], e, 1e6)         # [N, D, PH, P]
-    return torch.sum(e, dim=(2, 3))
+    sl = strip.unfold(-1, p, 1).flip(-2)                # [N, PH, D, P]
+    inb = colb.unfold(-1, p, 1).flip(-2)                # [N, D, P]
+    e = torch.abs(patch_l[..., None, :] - sl).transpose(-3, -2)
+    e = torch.where(inb[..., None, :], e, 1e6)          # [N, D, PH, P]
+    return torch.sum(e, dim=(-2, -1))
 
 
 def sparse_block_match(left: torch.Tensor, right: torch.Tensor,
@@ -61,19 +64,20 @@ def sparse_block_match(left: torch.Tensor, right: torch.Tensor,
                        cfg: DisparityConfig = DisparityConfig()):
     """Sparse SAD block matching at N integer left-image locations.
 
-    Returns (disp [N] f32, valid [N] bool): winner-take-all with the
-    texture check and the subpixel parabola of the reference."""
-    left = left.to(torch.float32).contiguous()
-    right = right.to(torch.float32).contiguous()
+    Returns (disp [..., N] f32, valid [..., N] bool): winner-take-all with
+    the texture check and the subpixel parabola of the reference."""
+    left = as_planes(left)
+    right = as_planes(right)
     n_disp = cfg.max_disparity - cfg.min_disparity
     costs = _sparse_costs_sad(left, right, ys, xs, cfg)
-    best = torch.argmin(costs, dim=1)
-    cbest = torch.gather(costs, 1, best[:, None])[:, 0]
+    at = lambda d: torch.gather(costs, -1, d[..., None])[..., 0]
+    best = torch.argmin(costs, dim=-1)
+    cbest = at(best)
     valid = (xs - (cfg.min_disparity + best) >= 0) & (cbest < 1e17)
     if cfg.texture_threshold > 0:
-        d_idx = torch.arange(n_disp, device=costs.device)[None, :]
-        near = torch.abs(d_idx - best[:, None]) <= 1
-        c2 = torch.min(torch.where(near, float("inf"), costs), dim=1).values
+        d_idx = torch.arange(n_disp, device=costs.device)
+        near = torch.abs(d_idx - best[..., None]) <= 1
+        c2 = torch.amin(torch.where(near, float("inf"), costs), dim=-1)
         valid &= (((c2 - cbest)
                    > cfg.texture_threshold * torch.clamp(cbest, min=1e-6))
                   | ~torch.isfinite(c2))
@@ -81,8 +85,8 @@ def sparse_block_match(left: torch.Tensor, right: torch.Tensor,
     # subpixel parabola through the best cost and its two neighbours
     dm = torch.clamp(best - 1, 0, n_disp - 1)
     dp = torch.clamp(best + 1, 0, n_disp - 1)
-    cm = torch.gather(costs, 1, dm[:, None])[:, 0]
-    cp = torch.gather(costs, 1, dp[:, None])[:, 0]
+    cm = at(dm)
+    cp = at(dp)
     denom = cm - 2.0 * cbest + cp
     off = torch.where(denom > 1e-9, 0.5 * (cm - cp) / denom, 0.0)
     interior = (best > 0) & (best < n_disp - 1)

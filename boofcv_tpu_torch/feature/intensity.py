@@ -16,15 +16,15 @@ from boofcv_tpu_torch.ip import derivative as _deriv
 def _box_sum(image: torch.Tensor, radius: int) -> torch.Tensor:
     """(2r+1)^2 box sum with an EXTENDED border, as separable shifted adds
     (horizontal then vertical, like the reference's two 1-D passes)."""
-    h, w = image.shape
+    h, w = image.shape[-2:]
     n = 2 * radius + 1
-    p = convolve.pad(image, radius, radius, BorderType.EXTENDED)
-    t = p[:, 0:w]
+    p = convolve.pad_planes(image, radius, radius, BorderType.EXTENDED)
+    t = p[..., 0:w]
     for k in range(1, n):
-        t = t + p[:, k:k + w]
-    out = t[0:h]
+        t = t + p[..., k:k + w]
+    out = t[..., 0:h, :]
     for k in range(1, n):
-        out = out + t[k:k + h]
+        out = out + t[..., k:k + h, :]
     return out
 
 
@@ -37,7 +37,8 @@ def _structure_tensor(image: torch.Tensor, radius: int = 2):
 
 
 def shi_tomasi(image: torch.Tensor, radius: int = 2) -> torch.Tensor:
-    """Shi-Tomasi min-eigenvalue intensity (ShiTomasiCornerIntensity.java)."""
+    """Shi-Tomasi min-eigenvalue intensity (ShiTomasiCornerIntensity.java)
+    of an [..., H, W] image."""
     sxx, sxy, syy = _structure_tensor(image, radius)
     tr_half = (sxx + syy) * 0.5
     det_part = torch.sqrt(torch.clamp(

@@ -122,24 +122,30 @@ def reprojection_error_sq(R, t, world, obs):
 
 def _gn_pose_loop(R, t, world, obs, wgt, iterations: int, damping: float,
                   dtype, step_tol: float):
-    """One precision tier of the GN pose loop.
+    """One precision tier of the GN pose loop, for one problem (R [3, 3],
+    world [N, 3]) or B independent ones with a leading axis on every
+    argument.
 
     The reference's early-exit ``while_loop`` (continue while the last
     step's max|dx| > step_tol) becomes ``iterations`` fixed steps with a
     frozen flag: an update is applied only while every earlier step was
     above the tolerance, which reproduces the early exit exactly with no
-    host sync.  ``cholesky_ex`` keeps the factorization's status on the
-    device; a failed factorization yields NaN like the reference's."""
+    host sync.  The flag is per problem: under ``vmap`` the reference
+    freezes each stream at its own exit.  ``cholesky_ex`` keeps the
+    factorization's status on the device; a failed factorization yields
+    NaN like the reference's."""
     world = world.to(dtype)
     obs = obs.to(dtype)
     wgt = wgt.to(dtype)
     R = R.to(dtype)
     t = t.to(dtype)
     eye6 = damping * torch.eye(6, dtype=dtype, device=world.device)
-    frozen = torch.zeros((), dtype=torch.bool, device=world.device)
-    w2 = wgt[:, None]
+    lead = world.shape[:-2]
+    frozen = torch.zeros(lead, dtype=torch.bool, device=world.device)
+    w2 = wgt[..., None]
+    T = lambda a: a.transpose(-1, -2)
     for _ in range(iterations):
-        Xc = world @ R.T + t
+        Xc = world @ T(R) + t[..., None, :]
         z = torch.where(torch.abs(Xc[..., 2]) < 1e-12, 1e-12, Xc[..., 2])
         inv_z = 1.0 / z
         x = Xc[..., 0] * inv_z
@@ -151,25 +157,26 @@ def _gn_pose_loop(R, t, world, obs, wgt, iterations: int, damping: float,
         jv_x = torch.stack([inv_z, zeros, -x * inv_z], -1)
         jv_y = torch.stack([zeros, inv_z, -y * inv_z], -1)
         J = torch.stack([torch.cat([jw_x, jv_x], -1),
-                         torch.cat([jw_y, jv_y], -1)], 1)    # [N, 2, 6]
-        Jf = J.reshape(-1, 6)
-        H = (J * w2[..., None]).reshape(-1, 6).T @ Jf + eye6
-        g = Jf.T @ (r * w2).reshape(-1)
+                         torch.cat([jw_y, jv_y], -1)], -2)   # [N, 2, 6]
+        Jf = J.reshape(lead + (-1, 6))
+        H = T((J * w2[..., None]).reshape(lead + (-1, 6))) @ Jf + eye6
+        g = T(Jf) @ (r * w2).reshape(lead + (-1, 1))
         L, info = torch.linalg.cholesky_ex(H)
-        L = torch.where(info == 0, L, float("nan"))
-        y6 = torch.linalg.solve_triangular(L, g[:, None], upper=False)
-        dx = -torch.linalg.solve_triangular(L.T, y6, upper=True)[:, 0]
+        L = torch.where((info == 0)[..., None, None], L, float("nan"))
+        y6 = torch.linalg.solve_triangular(L, g, upper=False)
+        dx = -torch.linalg.solve_triangular(T(L), y6, upper=True)[..., 0]
         dR, dt = se3.exp_se3(dx)
         Rn, tn = se3.compose(dR, dt, R, t)
-        R = torch.where(frozen, R, Rn)
-        t = torch.where(frozen, t, tn)
-        frozen = frozen | ~(torch.amax(torch.abs(dx)) > step_tol)
+        R = torch.where(frozen[..., None, None], R, Rn)
+        t = torch.where(frozen[..., None], t, tn)
+        frozen = frozen | ~(torch.amax(torch.abs(dx), dim=-1) > step_tol)
     return R, t
 
 
 def gauss_newton_pose(R, t, world, obs, weights=None, iterations: int = 10,
                       damping: float = 1e-8, polish_iterations: int = 2):
-    """Weighted GN pose refinement with the analytic reprojection Jacobian.
+    """Weighted GN pose refinement with the analytic reprojection Jacobian,
+    of one pose or of B poses with a leading axis on every argument.
 
     The convergence iterations run in float32, then two Newton-polar steps
     R(3I - R^T R)/2 in float64 restore orthogonality, then
@@ -184,7 +191,7 @@ def gauss_newton_pose(R, t, world, obs, weights=None, iterations: int = 10,
         R = R.to(torch.float64)
         eye = torch.eye(3, dtype=torch.float64, device=R.device)
         for _ in range(2):
-            R = R @ (1.5 * eye - 0.5 * (R.T @ R))
+            R = R @ (1.5 * eye - 0.5 * (R.transpose(-1, -2) @ R))
     if polish_iterations > 0:
         R, t = _gn_pose_loop(R, t, world, obs, weights,
                              min(polish_iterations, iterations),

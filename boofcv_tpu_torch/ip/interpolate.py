@@ -42,16 +42,16 @@ def bilinear(image: torch.Tensor, ys: torch.Tensor,
 
 
 def _rect_taps(cy, cx, radius: int, h: int, w: int):
-    """Flat indices [N, P+1, P+1] of each track's (P+1)^2 support, with the
-    support's top-left clamped into the image, and the fractions."""
+    """Flat indices [..., N, P+1, P+1] of each track's (P+1)^2 support, with
+    the support's top-left clamped into the image, and the fractions."""
     p = 2 * radius + 1
     y0f = torch.floor(cy)
     x0f = torch.floor(cx)
     yi = (y0f.long() - radius).clamp(0, max(h - p - 1, 0))
     xi = (x0f.long() - radius).clamp(0, max(w - p - 1, 0))
     d = torch.arange(p + 1, device=cy.device)
-    flat = ((yi[:, None, None] + d[None, :, None]) * w
-            + (xi[:, None, None] + d[None, None, :]))
+    flat = ((yi[..., None, None] + d[:, None]) * w
+            + (xi[..., None, None] + d[None, :]))
     return flat, cy - y0f, cx - x0f
 
 
@@ -64,28 +64,25 @@ def _blend(sl, fy, fx, p: int):
 
 def sample_rect_bilinear(image: torch.Tensor, cy: torch.Tensor,
                          cx: torch.Tensor, radius: int) -> torch.Tensor:
-    """(2r+1)^2 patches centred at float (cy, cx) [N] -> [N, P, P].
-    Centres whose support leaves the image clamp the support to the
-    border (KLT masks such tracks separately)."""
-    p = 2 * radius + 1
-    h, w = image.shape
-    img = image if image.is_floating_point() else image.to(torch.float32)
-    flat, fy, fx = _rect_taps(cy, cx, radius, h, w)
-    sl = img.reshape(-1)[flat]                       # [N, P+1, P+1]
-    fy = fy.to(img.dtype)[:, None, None]
-    fx = fx.to(img.dtype)[:, None, None]
-    return _blend(sl, fy, fx, p)
+    """(2r+1)^2 patches of an [..., H, W] image centred at float (cy, cx)
+    [..., N] -> [..., N, P, P].  Centres whose support leaves the image
+    clamp the support to the border (KLT masks such tracks separately)."""
+    return sample_rect_bilinear_multi(image[..., None, :, :], cy, cx,
+                                      radius)[..., 0, :, :, :]
 
 
 def sample_rect_bilinear_multi(images: torch.Tensor, cy: torch.Tensor,
                                cx: torch.Tensor, radius: int) -> torch.Tensor:
-    """:func:`sample_rect_bilinear` for a [C, H, W] stack, one index set
-    shared across the channels.  Returns [C, N, P, P]."""
+    """:func:`sample_rect_bilinear` for an [..., C, H, W] stack, one index
+    set shared across the channels.  Returns [..., C, N, P, P]."""
     p = 2 * radius + 1
-    c, h, w = images.shape
+    c, h, w = images.shape[-3:]
+    lead = images.shape[:-3]
     img = images if images.is_floating_point() else images.to(torch.float32)
     flat, fy, fx = _rect_taps(cy, cx, radius, h, w)
-    sl = img.reshape(c, h * w)[:, flat]              # [C, N, P+1, P+1]
-    fy = fy.to(img.dtype)[None, :, None, None]
-    fx = fx.to(img.dtype)[None, :, None, None]
+    taps = flat.reshape(lead + (1, -1)).expand(lead + (c, -1))
+    sl = img.reshape(lead + (c, h * w)).gather(-1, taps).reshape(
+        lead + (c,) + flat.shape[len(lead):])        # [..., C, N, P+1, P+1]
+    fy = fy.to(img.dtype)[..., None, :, None, None]
+    fx = fx.to(img.dtype)[..., None, :, None, None]
     return _blend(sl, fy, fx, p)

@@ -13,8 +13,15 @@ from boofcv_tpu_torch.ip import derivative
 
 def pyramid_average(image: torch.Tensor,
                     config: PyramidConfig) -> Tuple[torch.Tensor, ...]:
-    """2x2 block-average pyramid (PyramidDiscreteAverage).  Odd dims are
-    cropped before each 2x2 mean, so level sizes are floor(h/s)."""
+    """2x2 block-average pyramid (PyramidDiscreteAverage) of an [..., H, W]
+    image.  Odd dims are cropped before each 2x2 mean, so level sizes are
+    floor(h/s).  When every leading index views one frame (an expanded
+    tensor: the streams of a batched step replaying one sequence) the
+    pyramid is built once and its levels are expanded the same way."""
+    lead = image.shape[:-2]
+    if lead and not any(image.stride()[:-2]):
+        one = pyramid_average(image[(0,) * len(lead)], config)
+        return tuple(level.expand(lead + level.shape) for level in one)
     levels = [image.to(torch.float32)]
     cur = levels[0]
     for prev_s, s in zip(config.scales, config.scales[1:]):
@@ -24,9 +31,9 @@ def pyramid_average(image: torch.Tensor,
                 f"pyramid scales must step by powers of 2, got {prev_s}"
                 f" -> {s} (a silent wrong-scale level otherwise)")
         while step > 1:
-            h, w = cur.shape
-            cur = cur[: h - h % 2, : w - w % 2].reshape(
-                h // 2, 2, w // 2, 2).mean(dim=(1, 3))
+            h, w = cur.shape[-2:]
+            cur = cur[..., : h - h % 2, : w - w % 2].reshape(
+                lead + (h // 2, 2, w // 2, 2)).mean(dim=(-3, -1))
             step //= 2
         levels.append(cur)
     return tuple(levels)

@@ -33,6 +33,15 @@
 // Level pointers and sizes arrive in a by-value struct, so the host builds no
 // pointer table on the device.
 //
+// Streams: B independent streams of N tracks go in one launch of B*N warps
+// (the reference vmaps its step).  Positions and templates are [B, N, ...]
+// flattened, so a warp's track index also indexes them; its images are those
+// of stream n / N, `stride[l]` elements apart on level l: h_l * w_l for a
+// stack of frames, 0 when every stream tracks on one shared frame, whose
+// pixels are then read from device memory once.  At B = 16 the launch is
+// 8,192 warps in 2,048 blocks of 6 KB shared memory, the first shape that
+// covers the card's 132 SMs.
+//
 // Build: -fmad=false.  The plain version computes every product and sum as a
 // separate rounded operation; without contraction into FMA the kernel differs
 // from it only in the order of the 49-term sums.
@@ -42,10 +51,11 @@
 #define KLT_MAX_LEVELS 8
 
 struct KltLevels {
-  const float* img[KLT_MAX_LEVELS];   // [h, w] level image
+  const float* img[KLT_MAX_LEVELS];   // [h, w] level image of stream 0
   const float* desc[KLT_MAX_LEVELS];  // [N, P, P] template
   const float* gx[KLT_MAX_LEVELS];    // [N, P, P] template gradient in x
   const float* gy[KLT_MAX_LEVELS];    // [N, P, P] template gradient in y
+  long long stride[KLT_MAX_LEVELS];   // elements between two streams' images
   int h[KLT_MAX_LEVELS];
   int w[KLT_MAX_LEVELS];
   float ratio[KLT_MAX_LEVELS];  // scales[l] / scales[l - 1] for l >= 1
@@ -54,7 +64,8 @@ struct KltLevels {
 };
 
 struct KltParams {
-  int n;
+  int n;           // tracks in all (streams x tracks per stream)
+  int per_stream;  // tracks per stream
   int radius;
   int max_iterations;
   float max_per_pixel_error;
@@ -102,6 +113,7 @@ __global__ void klt_track_kernel(KltLevels lv, KltParams prm,
   const int warp = threadIdx.x >> 5;
   const int n = blockIdx.x * kWarpsPerBlock + warp;
   if (n >= prm.n) return;  // the whole warp leaves; no block barrier is used
+  const int stream = n / prm.per_stream;
 
   const int r = prm.radius;
   const int p = 2 * r + 1;
@@ -131,7 +143,8 @@ __global__ void klt_track_kernel(KltLevels lv, KltParams prm,
   int evals = 0;
 
   for (int l = lv.n_levels - 1; l >= 0; --l) {
-    const float* __restrict__ img = lv.img[l];
+    const float* __restrict__ img =
+        lv.img[l] + static_cast<long long>(stream) * lv.stride[l];
     const int h = lv.h[l];
     const int w = lv.w[l];
 
@@ -264,7 +277,8 @@ int klt_track_launch(const KltLevels* lv, const KltParams* prm,
                      float* out_x, int* out_fault, int* out_evals,
                      void* stream) {
   if (prm->n <= 0) return 0;
-  if (lv->n_levels < 1 || lv->n_levels > KLT_MAX_LEVELS || prm->radius < 1)
+  if (lv->n_levels < 1 || lv->n_levels > KLT_MAX_LEVELS || prm->radius < 1
+      || prm->per_stream < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int p = 2 * prm->radius + 1;
   const int wy = (p + 2 <= 16) ? 24 : 32;

@@ -20,6 +20,8 @@ from typing import Sequence
 
 import torch
 
+from boofcv_tpu_torch.kernels.window_gather import plane_stride
+
 MAX_LEVELS = 8    # KLT_MAX_LEVELS in csrc/klt_track.cu
 MAX_RADIUS = 7    # 15x15 patch: eight pixels per lane
 
@@ -42,6 +44,7 @@ class _Levels(ctypes.Structure):
                 ("desc", ctypes.c_void_p * MAX_LEVELS),
                 ("gx", ctypes.c_void_p * MAX_LEVELS),
                 ("gy", ctypes.c_void_p * MAX_LEVELS),
+                ("stride", ctypes.c_longlong * MAX_LEVELS),
                 ("h", ctypes.c_int * MAX_LEVELS),
                 ("w", ctypes.c_int * MAX_LEVELS),
                 ("ratio", ctypes.c_float * MAX_LEVELS),
@@ -52,6 +55,7 @@ class _Levels(ctypes.Structure):
 class _Params(ctypes.Structure):
     """``KltParams`` of csrc/klt_track.cu."""
     _fields_ = [("n", ctypes.c_int),
+                ("per_stream", ctypes.c_int),
                 ("radius", ctypes.c_int),
                 ("max_iterations", ctypes.c_int),
                 ("max_per_pixel_error", ctypes.c_float),
@@ -81,7 +85,7 @@ def _check(name: str, t: torch.Tensor, shape, dev: torch.device):
         raise ValueError(f"{name} on {t.device}, ys on {dev}")
     if t.dtype != torch.float32:
         raise ValueError(f"{name} must be float32, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
+    if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must be {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
@@ -96,16 +100,19 @@ def klt_track_cuda(pyramid: Sequence[torch.Tensor],
                    scales: Sequence[int], template_radius: int,
                    max_iterations: int, max_per_pixel_error: float,
                    min_determinant: float, convergence_tol: float):
-    """Launch the kernel.  pyramid[l]: [h_l, w_l]; desc / grad_x /
+    """Launch the kernel, once.  pyramid[l]: [h_l, w_l]; desc / grad_x /
     grad_y[l]: [N, P, P] with P = 2 * template_radius + 1; ys, xs: [N]
-    positions at the scale of level 0; all float32, contiguous, on one CUDA
+    positions at the scale of level 0.  Or B streams: ys, xs [B, N],
+    templates [B, N, P, P], pyramid[l] [B, h_l, w_l], each level a
+    contiguous stack or one frame expanded over the streams (see
+    ``window_gather.plane_stride``).  All float32, contiguous, on one CUDA
     device; at most ``MAX_LEVELS`` levels.  Raises on anything else and on
     a failed launch.
 
-    Returns (ys, xs, fault, evals): [N] float32 positions, the int32 fault
-    code (the worst over the levels) and the int32 count of patch
-    evaluations each track ran, summed over the levels (what the kernel's
-    arithmetic bound is counted from)."""
+    Returns (ys, xs, fault, evals) shaped like ``ys``: float32 positions,
+    the int32 fault code (the worst over the levels) and the int32 count of
+    patch evaluations each track ran, summed over the levels (what the
+    kernel's arithmetic bound is counted from)."""
     global _launches
     if not isinstance(ys, torch.Tensor) or ys.device.type != "cuda":
         raise ValueError(f"klt_track_cuda needs CUDA tensors, got ys on "
@@ -125,36 +132,42 @@ def klt_track_cuda(pyramid: Sequence[torch.Tensor],
         if len(seq) != n_levels:
             raise ValueError(f"{name} has {len(seq)} levels, scales "
                              f"{n_levels}")
-    if ys.dim() != 1:
-        raise ValueError(f"ys must be [N], got {tuple(ys.shape)}")
-    n = ys.shape[0]
+    if ys.dim() not in (1, 2):
+        raise ValueError(f"ys must be [N] or [B, N], got {tuple(ys.shape)}")
+    shape = tuple(ys.shape)
     p = 2 * template_radius + 1
-    _check("ys", ys, (n,), dev)
-    _check("xs", xs, (n,), dev)
+    _check("ys", ys, shape, dev)
+    _check("xs", xs, shape, dev)
     lv = _Levels()
     for l in range(n_levels):
         img = pyramid[l]
-        _check(f"pyramid[{l}]", img, None, dev)
-        if img.dim() != 2 or img.shape[0] < 1 or img.shape[1] < 1:
-            raise ValueError(f"pyramid[{l}] must be [h, w], got "
-                             f"{tuple(img.shape)}")
+        if not isinstance(img, torch.Tensor):
+            raise ValueError(f"pyramid[{l}] must be a tensor, got "
+                             f"{type(img).__name__}")
+        if img.device != dev:
+            raise ValueError(f"pyramid[{l}] on {img.device}, ys on {dev}")
+        lv.stride[l] = plane_stride(f"pyramid[{l}]", img)
+        if img.shape[:-2] != shape[:-1]:
+            raise ValueError(f"pyramid[{l}] is {tuple(img.shape)} for ys "
+                             f"{shape}")
         lv.img[l] = img.data_ptr()
-        lv.h[l], lv.w[l] = img.shape
+        lv.h[l], lv.w[l] = img.shape[-2:]
         for name, seq, field in (("desc", desc, lv.desc),
                                  ("grad_x", grad_x, lv.gx),
                                  ("grad_y", grad_y, lv.gy)):
-            _check(f"{name}[{l}]", seq[l], (n, p, p), dev)
+            _check(f"{name}[{l}]", seq[l], shape + (p, p), dev)
             field[l] = seq[l].data_ptr()
         lv.ratio[l] = scales[l] / scales[l - 1] if l > 0 else 1.0
     lv.top_scale = float(scales[-1])
     lv.n_levels = n_levels
-    prm = _Params(n, template_radius, max_iterations, max_per_pixel_error,
-                  min_determinant, convergence_tol)
+    n = ys.numel()
+    prm = _Params(n, shape[-1], template_radius, max_iterations,
+                  max_per_pixel_error, min_determinant, convergence_tol)
 
-    out_y = torch.empty((n,), dtype=torch.float32, device=dev)
-    out_x = torch.empty((n,), dtype=torch.float32, device=dev)
-    fault = torch.empty((n,), dtype=torch.int32, device=dev)
-    evals = torch.empty((n,), dtype=torch.int32, device=dev)
+    out_y = torch.empty(shape, dtype=torch.float32, device=dev)
+    out_x = torch.empty(shape, dtype=torch.float32, device=dev)
+    fault = torch.empty(shape, dtype=torch.int32, device=dev)
+    evals = torch.empty(shape, dtype=torch.int32, device=dev)
     if n > 0:
         lib = _kernel_lib()
         with torch.cuda.device(dev):

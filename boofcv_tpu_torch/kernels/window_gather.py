@@ -37,15 +37,20 @@ def reset_launch_count() -> None:
 def gather_windows_reference(image: torch.Tensor, oy: torch.Tensor,
                              ox: torch.Tensor, wy: int,
                              wx: int) -> torch.Tensor:
-    """Plain PyTorch version: [N, wy, wx] windows with top-left corners
-    (oy, ox), reads clamped into the image (EXTENDED border)."""
-    h, w = image.shape
+    """Plain PyTorch version: [N, wy, wx] windows of an [h, w] image with
+    top-left corners (oy, ox) [N], reads clamped into the image (EXTENDED
+    border); or [B, N, wy, wx] windows of [B, h, w] images at [B, N]
+    corners, stream b's windows from image b."""
+    h, w = image.shape[-2:]
+    lead = image.shape[:-2]
     dev = image.device
-    rows = (oy.long()[:, None]
-            + torch.arange(wy, device=dev)[None, :]).clamp_(0, h - 1)
-    cols = (ox.long()[:, None]
-            + torch.arange(wx, device=dev)[None, :]).clamp_(0, w - 1)
-    return image[rows[:, :, None], cols[:, None, :]]
+    rows = (oy.long()[..., None]
+            + torch.arange(wy, device=dev)).clamp_(0, h - 1)
+    cols = (ox.long()[..., None]
+            + torch.arange(wx, device=dev)).clamp_(0, w - 1)
+    flat = rows[..., :, None] * w + cols[..., None, :]
+    return image.reshape(lead + (h * w,)).gather(
+        -1, flat.reshape(lead + (-1,))).reshape(flat.shape)
 
 
 @functools.cache
@@ -54,50 +59,86 @@ def _kernel_lib():
     from boofcv_tpu_torch.kernels._nvcc import load_library
     lib = load_library("window_gather")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.window_gather_launch.argtypes = [vp, ci, ci, vp, vp, ci, ci, ci, vp,
-                                         vp]
+    lib.window_gather_launch.argtypes = [vp, ctypes.c_longlong, ci, ci, vp,
+                                         vp, ci, ci, ci, ci, vp, vp]
     lib.window_gather_launch.restype = ci
     lib.window_gather_error_string.argtypes = [ci]
     lib.window_gather_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def plane_stride(name: str, image: torch.Tensor) -> int:
+    """What the kernels take as an image: float32 [h, w] or [B, h, w] whose
+    [h, w] planes are contiguous.  Returns the element stride between the
+    planes: h * w for a contiguous stack, 0 for one frame expanded over the
+    streams (and for [h, w]).  Raises on anything else."""
+    if image.dtype != torch.float32 or image.dim() not in (2, 3):
+        raise ValueError(f"{name} must be [h, w] or [B, h, w] float32, got "
+                         f"{tuple(image.shape)} {image.dtype}")
+    if min(image.shape) < 1:
+        raise ValueError(f"{name} is empty: {tuple(image.shape)}")
+    if image.stride()[-2:] != (image.shape[-1], 1):
+        raise ValueError(f"{name} must have contiguous [h, w] planes, got "
+                         f"strides {image.stride()}")
+    if image.dim() == 2 or image.shape[0] == 1:
+        return 0
+    if image.stride(0) not in (0, image.shape[-2] * image.shape[-1]):
+        raise ValueError(f"{name} must be a contiguous stack or one frame "
+                         f"expanded, got strides {image.stride()}")
+    return image.stride(0)
+
+
+def as_planes(image: torch.Tensor) -> torch.Tensor:
+    """``image`` [h, w] or [B, h, w] as float32 in a layout
+    :func:`plane_stride` takes, copied only where it must be (one frame
+    expanded over the streams stays one frame)."""
+    image = image.to(torch.float32)
+    h, w = image.shape[-2:]
+    stacked = (image.dim() == 2 or image.shape[0] == 1
+               or image.stride(0) in (0, h * w))
+    if stacked and image.stride()[-2:] == (w, 1):
+        return image
+    return image.contiguous()
+
+
 def gather_windows_cuda(image: torch.Tensor, oy: torch.Tensor,
                         ox: torch.Tensor, wy: int, wx: int) -> torch.Tensor:
-    """Launch the CUDA kernel.  image: [h, w] float32 contiguous; oy, ox:
-    [N] int32 contiguous; all on one CUDA device.  Raises on anything else
-    and on a failed launch."""
+    """Launch the CUDA kernel, once.  image: [h, w] float32 with oy, ox: [N]
+    int32, or [B, h, w] (a contiguous stack, or one frame expanded over B)
+    with oy, ox: [B, N]; origins contiguous; all on one CUDA device.  Raises
+    on anything else and on a failed launch."""
     global _launches
     if image.device.type != "cuda":
         raise ValueError(f"gather_windows_cuda needs CUDA tensors, got "
                          f"image on {image.device}")
-    if image.dim() != 2 or image.dtype != torch.float32:
-        raise ValueError(f"image must be [h, w] float32, got "
-                         f"{tuple(image.shape)} {image.dtype}")
+    stride = plane_stride("image", image)
+    want = "[B, N]" if image.dim() == 3 else "[N]"
     for name, o in (("oy", oy), ("ox", ox)):
-        if o.dim() != 1 or o.dtype != torch.int32:
-            raise ValueError(f"{name} must be [N] int32, got "
+        if o.dim() != image.dim() - 1 or o.dtype != torch.int32:
+            raise ValueError(f"{name} must be {want} int32, got "
                              f"{tuple(o.shape)} {o.dtype}")
         if o.device != image.device:
             raise ValueError(f"{name} on {o.device}, image on {image.device}")
         if not o.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if oy.shape[0] != ox.shape[0]:
-        raise ValueError(f"oy has {oy.shape[0]} origins, ox {ox.shape[0]}")
-    if not image.is_contiguous():
-        raise ValueError("image must be contiguous")
+    if oy.shape != ox.shape:
+        raise ValueError(f"oy is {tuple(oy.shape)}, ox {tuple(ox.shape)}")
+    if oy.shape[:-1] != image.shape[:-2]:
+        raise ValueError(f"{tuple(oy.shape)} origins for "
+                         f"{tuple(image.shape)} images")
     if wy <= 0 or wx <= 0:
         raise ValueError(f"window {wy}x{wx} must be positive")
-    h, w = image.shape
-    n = oy.shape[0]
-    out = torch.empty((n, wy, wx), dtype=torch.float32, device=image.device)
-    if n == 0:
+    h, w = image.shape[-2:]
+    out = torch.empty(tuple(oy.shape) + (wy, wx), dtype=torch.float32,
+                      device=image.device)
+    if oy.numel() == 0:
         return out
     lib = _kernel_lib()
     with torch.cuda.device(image.device):
         stream = torch.cuda.current_stream(image.device).cuda_stream
-        err = lib.window_gather_launch(image.data_ptr(), h, w, oy.data_ptr(),
-                                       ox.data_ptr(), n, wy, wx,
+        err = lib.window_gather_launch(image.data_ptr(), stride, h, w,
+                                       oy.data_ptr(), ox.data_ptr(),
+                                       oy.numel(), oy.shape[-1], wy, wx,
                                        out.data_ptr(), stream)
     if err != 0:
         msg = lib.window_gather_error_string(err).decode()
@@ -108,10 +149,12 @@ def gather_windows_cuda(image: torch.Tensor, oy: torch.Tensor,
 
 def gather_windows(image: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
                    wy: int = 24, wx: int = 16) -> torch.Tensor:
-    """[N, wy, wx] windows of ``image`` with integer top-left corners
-    (oy, ox); reads outside the image take the nearest edge pixel.
+    """[N, wy, wx] windows of ``image`` [h, w] with integer top-left corners
+    (oy, ox) [N], or [B, N, wy, wx] windows of [B, h, w] images at [B, N]
+    corners; reads outside the image take the nearest edge pixel.
 
-    CPU tensors take the plain version; CUDA tensors the kernel."""
+    CPU tensors take the plain version; CUDA tensors one launch of the
+    kernel, whatever B is."""
     if image.device.type == "cpu":
         return gather_windows_reference(image, oy, ox, wy, wx)
     return gather_windows_cuda(image, oy, ox, wy, wx)

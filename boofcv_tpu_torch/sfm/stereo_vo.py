@@ -1,5 +1,6 @@
 """Stereo visual odometry: KLT tracking + sparse stereo depth + RANSAC P3P
-(port of ``boofcv_tpu/sfm/stereo_vo.py``, single-stream path).
+(port of ``boofcv_tpu/sfm/stereo_vo.py``: the single-stream path and the
+B-stream path).
 
 Reference analog: boofcv-sfm alg/sfm/d3/VisOdomPixelDepthPnP.java:56,154
 (tracker.process -> estimateMotion [RANSAC P3P + refine] -> drop unused ->
@@ -12,12 +13,19 @@ iteration counts with frozen flags instead of early exits.  RANSAC draws
 from a ``torch.Generator`` carried in the state: each step forks it, so a
 state is a value, as in the reference, and replaying a step from the same
 state replays its draws.
+
+B independent streams (a camera rig, a fleet replay, a dataset evaluation)
+run as one step: a stacked state carries a leading stream axis on every
+tensor and one generator per stream, and the same code runs one pass of
+tensor ops over that axis, with one launch of each kernel and one host
+sync, whatever B is.  Where the reference vmaps its step, every function
+below the step takes the axis itself.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
@@ -51,7 +59,8 @@ class StereoVoConfig:
 
 
 class StereoVoState(NamedTuple):
-    """Fixed-capacity VO state on one device."""
+    """Fixed-capacity VO state on one device: of one stream, or stacked
+    over B streams with a leading [B] on every tensor."""
     xs: torch.Tensor          # [N] f32 track x (rectified-left pixels)
     ys: torch.Tensor          # [N] f32
     world: torch.Tensor       # [N, 3] f64 points in the world frame
@@ -59,9 +68,29 @@ class StereoVoState(NamedTuple):
     templates: klt.KltTemplates
     R: torch.Tensor           # [3, 3] f64 world->camera
     t: torch.Tensor           # [3] f64
-    rng: torch.Generator      # RANSAC draws (forked by every step)
+    # RANSAC draws (forked by every step); stacked: one generator a stream
+    rng: Union[torch.Generator, Tuple[torch.Generator, ...]]
     uid: torch.Tensor         # [N] int32 stable track id
     next_uid: torch.Tensor    # scalar int32
+
+
+_TENSOR_FIELDS = ("xs", "ys", "world", "alive", "R", "t", "uid", "next_uid")
+
+
+def _map_tensors(fn, *states: StereoVoState) -> StereoVoState:
+    """``fn`` over the corresponding tensors of ``states`` (templates
+    level by level); the first state's generators are kept."""
+    tm = klt.KltTemplates(*(
+        tuple(fn(*level) for level in zip(*(getattr(s.templates, k)
+                                            for s in states)))
+        for k in klt.KltTemplates._fields))
+    return states[0]._replace(templates=tm, **{
+        k: fn(*(getattr(s, k) for s in states)) for k in _TENSOR_FIELDS})
+
+
+def stream_state(states: StereoVoState, b: int) -> StereoVoState:
+    """Stream ``b`` of a stacked state, as a single-stream state."""
+    return _map_tensors(lambda a: a[b], states)._replace(rng=states.rng[b])
 
 
 def _generator(device, seed: int) -> torch.Generator:
@@ -70,8 +99,11 @@ def _generator(device, seed: int) -> torch.Generator:
     return g
 
 
-def _fork(g: torch.Generator) -> torch.Generator:
-    """A copy of ``g`` at its current position (host-side state only)."""
+def _fork(g):
+    """A copy of ``g`` (a generator, or a stacked state's tuple of them) at
+    its current position (host-side state only)."""
+    if not isinstance(g, torch.Generator):
+        return tuple(_fork(x) for x in g)
     out = torch.Generator(device=g.device)
     out.set_state(g.get_state())
     return out
@@ -99,6 +131,20 @@ def init_state(cfg: StereoVoConfig, height: int, width: int, seed: int = 0,
         next_uid=torch.zeros((), dtype=torch.int32, device=dev))
 
 
+def init_batched_state(cfg: StereoVoConfig, num_streams: int, height: int,
+                       width: int, seed: int = 0,
+                       device=None) -> StereoVoState:
+    """Stacked state for ``num_streams`` independent VO streams on
+    ``device`` (None: the card; raises without one): a leading stream axis
+    on every tensor, and stream i's RANSAC generator seeded ``seed + i``,
+    so it draws what a single-stream state with that seed draws."""
+    dev = resolve_device(device)
+    states = [init_state(cfg, height, width, seed + i, dev)
+              for i in range(num_streams)]
+    return _map_tensors(lambda *a: torch.stack(a), *states)._replace(
+        rng=tuple(s.rng for s in states))
+
+
 def _key_to_seed(key) -> int:
     """The reference's PRNGKey(seed) holds [seed >> 32, seed & 0xffffffff]."""
     k = np.asarray(key).astype(np.uint64).ravel()
@@ -111,20 +157,30 @@ def state_from_numpy(d: dict, device=None) -> StereoVoState:
     ``desc`` / ``grad_x`` / ``grad_y``).  The reference's ``key`` maps to a
     seed and the generator is rebuilt from it; an ``rng_state`` entry
     (written by :func:`state_to_numpy`) restores the generator exactly.
+    A stacked state (every array with a leading [B], ``key`` [B, 2]) gives
+    a stacked state with one generator per stream.
     ``device`` None means the card, and raises without one."""
     dev = resolve_device(device)
 
     def f(a, dtype):
         return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
 
+    def generator(key, rng_state):
+        if rng_state is None:
+            return _generator(dev, _key_to_seed(key))
+        g = torch.Generator(device=dev)
+        g.set_state(torch.as_tensor(np.array(rng_state), dtype=torch.uint8))
+        return g
+
     tm = d["templates"]
     tl = lambda k: tuple(f(a, torch.float32) for a in tm[k])
-    if "rng_state" in d:
-        rng = torch.Generator(device=dev)
-        rng.set_state(torch.as_tensor(np.array(d["rng_state"]),
-                                   dtype=torch.uint8))
+    keys = np.asarray(d["key"])
+    saved = d.get("rng_state")
+    if keys.ndim == 1:
+        rng = generator(keys, saved)
     else:
-        rng = _generator(dev, _key_to_seed(d["key"]))
+        rng = tuple(generator(k, None if saved is None else saved[i])
+                    for i, k in enumerate(keys))
     return StereoVoState(
         xs=f(d["xs"], torch.float32), ys=f(d["ys"], torch.float32),
         world=f(d["world"], torch.float64), alive=f(d["alive"], torch.bool),
@@ -135,18 +191,25 @@ def state_from_numpy(d: dict, device=None) -> StereoVoState:
 
 def state_to_numpy(state: StereoVoState) -> dict:
     """The inverse of :func:`state_from_numpy` (``key`` from the
-    generator's seed, ``rng_state`` for its exact position)."""
+    generator's seed, ``rng_state`` for its exact position; [B, 2] and
+    [B, bytes] for a stacked state)."""
     a = lambda x: x.detach().cpu().numpy()
-    seed = state.rng.initial_seed()
+
+    def key(g):
+        seed = g.initial_seed()
+        return np.array([(seed >> 32) & 0xffffffff, seed & 0xffffffff],
+                        np.uint32)
+
+    rng = lambda fn: (fn(state.rng) if isinstance(state.rng, torch.Generator)
+                      else np.stack([fn(g) for g in state.rng]))
     return {
         "xs": a(state.xs), "ys": a(state.ys), "world": a(state.world),
         "alive": a(state.alive),
         "templates": {k: [a(x) for x in getattr(state.templates, k)]
                       for k in ("desc", "grad_x", "grad_y")},
         "R": a(state.R), "t": a(state.t),
-        "key": np.array([(seed >> 32) & 0xffffffff, seed & 0xffffffff],
-                        np.uint32),
-        "rng_state": state.rng.get_state().numpy(),
+        "key": rng(key),
+        "rng_state": rng(lambda g: g.get_state().numpy()),
         "uid": a(state.uid), "next_uid": a(state.next_uid),
     }
 
@@ -172,10 +235,10 @@ def _spawn(state: StereoVoState, pyramid, grads, left, right, rectK,
     cand_x = det.xs.to(torch.float32)
     cand_ok = det.valid
 
-    d2 = ((cand_x[:, None] - state.xs[None, :]) ** 2
-          + (cand_y[:, None] - state.ys[None, :]) ** 2)
-    d2 = torch.where(state.alive[None, :], d2, float("inf"))
-    cand_ok = cand_ok & (torch.amin(d2, dim=1) > (2 * cfg.detect_radius) ** 2)
+    d2 = ((cand_x[..., :, None] - state.xs[..., None, :]) ** 2
+          + (cand_y[..., :, None] - state.ys[..., None, :]) ** 2)
+    d2 = torch.where(state.alive[..., None, :], d2, float("inf"))
+    cand_ok = cand_ok & (torch.amin(d2, dim=-1) > (2 * cfg.detect_radius) ** 2)
 
     dcfg = disp_mod.DisparityConfig(
         min_disparity=cfg.min_disparity, max_disparity=cfg.max_disparity,
@@ -189,32 +252,39 @@ def _spawn(state: StereoVoState, pyramid, grads, left, right, rectK,
                                cand_y.to(torch.float64),
                                disp.to(torch.float64), rectK, baseline)
     Rinv, tinv = se3.invert(state.R, state.t)
-    Xw = Xc @ Rinv.T + tinv
+    Xw = Xc @ Rinv.transpose(-1, -2) + tinv[..., None, :]
 
-    # compact candidates into dead slots by rank; duplicate writes land
-    # only on rank 0, which is never read, so write order does not matter
+    # compact candidates into dead slots by rank, stream by stream;
+    # duplicate writes land only on rank 0, which is never read, so write
+    # order does not matter
     dead = ~state.alive
-    slot_rank = torch.cumsum(dead.to(torch.int64), 0) * dead
-    cand_rank = torch.cumsum(cand_ok.to(torch.int64), 0) * cand_ok
-    by_rank = torch.zeros((n + 1,), dtype=torch.int64, device=dev)
-    by_rank.index_put_((cand_rank,), torch.arange(n, device=dev))
-    n_cand = torch.amax(cand_rank)
+    slot_rank = torch.cumsum(dead.to(torch.int64), -1) * dead
+    cand_rank = torch.cumsum(cand_ok.to(torch.int64), -1) * cand_ok
+    by_rank = torch.zeros(cand_rank.shape[:-1] + (n + 1,), dtype=torch.int64,
+                          device=dev)
+    by_rank.scatter_(-1, cand_rank,
+                     torch.arange(n, device=dev).expand(cand_rank.shape))
+    n_cand = torch.amax(cand_rank, dim=-1, keepdim=True)
     take = dead & (slot_rank <= n_cand) & (slot_rank > 0)
-    src = by_rank[torch.clamp(slot_rank, 0, n)]
+    src = by_rank.gather(-1, torch.clamp(slot_rank, 0, n))
 
-    new_xs = torch.where(take, cand_x[src], state.xs)
-    new_ys = torch.where(take, cand_y[src], state.ys)
-    new_world = torch.where(take[:, None], Xw[src], state.world)
+    new_xs = torch.where(take, cand_x.gather(-1, src), state.xs)
+    new_ys = torch.where(take, cand_y.gather(-1, src), state.ys)
+    new_world = torch.where(
+        take[..., None], Xw.gather(-2, src[..., None].expand(Xw.shape)),
+        state.world)
     new_alive = state.alive | take
     new_uid = torch.where(
-        take, state.next_uid + slot_rank.to(torch.int32) - 1, state.uid)
-    next_uid = state.next_uid + torch.amax(slot_rank * take).to(torch.int32)
+        take, state.next_uid[..., None] + slot_rank.to(torch.int32) - 1,
+        state.uid)
+    next_uid = state.next_uid + torch.amax(slot_rank * take,
+                                           dim=-1).to(torch.int32)
 
     # templates at the new positions; existing tracks keep their
     # spawn-time templates (the reference's KLT never re-describes a track)
     tmpl_new = klt.sample_templates(pyramid, grads, new_ys, new_xs,
                                     cfg.pyramid_scales, cfg.template_radius)
-    mix = lambda new, old: tuple(torch.where(take[:, None, None], a, b)
+    mix = lambda new, old: tuple(torch.where(take[..., None, None], a, b)
                                  for a, b in zip(new, old))
     tmpl = klt.KltTemplates(mix(tmpl_new.desc, state.templates.desc),
                             mix(tmpl_new.grad_x, state.templates.grad_x),
@@ -239,7 +309,8 @@ def _rect_k_on(rectK) -> Callable[[torch.device], torch.Tensor]:
 
 
 def _make_step_parts(cfg: StereoVoConfig, rectK, baseline: float):
-    """(track_estimate, spawn_fn): the two halves of the per-frame step."""
+    """(track_estimate, spawn_fn): the two halves of the per-frame step, of
+    one stream or of a stacked state and [B, H, W] frames."""
     rectK = np.asarray(rectK, np.float64)
     fx = float(rectK[0, 0])
     fy = float(rectK[1, 1])
@@ -273,15 +344,15 @@ def _make_step_parts(cfg: StereoVoConfig, rectK, baseline: float):
         # too few inliers: keep the previous pose, and leave the tracks
         # alone (a failed RANSAC's inlier mask is from a junk hypothesis)
         ok = res.num_inliers >= 6
-        Rn = torch.where(ok, Rn, state.R)
-        tn = torch.where(ok, tn, state.t)
-        alive = tracked & (res.inliers | ~ok)
+        Rn = torch.where(ok[..., None, None], Rn, state.R)
+        tn = torch.where(ok[..., None], tn, state.t)
+        alive = tracked & (res.inliers | ~ok[..., None])
 
         new_state = state._replace(xs=xs, ys=ys, alive=alive, R=Rn, t=tn,
                                    rng=rng)
-        frac = torch.mean(alive.to(torch.float32))
+        frac = torch.mean(alive.to(torch.float32), dim=-1)
         return (new_state, pyramid, left, right.to(torch.float32), frac,
-                (torch.sum(tracked), res.num_inliers, ok))
+                (torch.sum(tracked, dim=-1), res.num_inliers, ok))
 
     def spawn_fn(s, pyramid, left, right):
         grads = pyramid_ops.gradient(pyramid)
@@ -298,11 +369,19 @@ def _make_step_fn(cfg: StereoVoConfig, rectK, baseline: float):
         new_state, pyramid, l32, r32, frac, (n_tracked, n_inl, ok) = \
             track_estimate(state, left, right)
         # spawn into dead slots when the pool runs low: the step's one
-        # device->host sync
-        if bool(frac < cfg.respawn_below):
-            new_state = spawn_fn(new_state, pyramid, l32, r32)
+        # device->host sync.  As in the reference's batched step the spawn
+        # runs for every stream when any stream needs it, and each stream
+        # that does not keeps its state as it was.
+        need = frac < cfg.respawn_below
+        if bool(torch.any(need)):
+            spawned = spawn_fn(new_state, pyramid, l32, r32)
+            new_state = _map_tensors(
+                lambda a, b: torch.where(
+                    need.reshape(need.shape + (1,) * (a.dim() - need.dim())),
+                    a, b), spawned, new_state)
         metrics = {"tracked": n_tracked, "inliers": n_inl,
-                   "alive": torch.sum(new_state.alive), "pose_ok": ok}
+                   "alive": torch.sum(new_state.alive, dim=-1),
+                   "pose_ok": ok}
         return new_state, metrics
 
     return step
@@ -314,16 +393,19 @@ def make_step(cfg: StereoVoConfig, rectK, baseline: float):
     return _make_step_fn(cfg, rectK, baseline)
 
 
-def make_sequence_runner(cfg: StereoVoConfig, rectK, baseline: float):
-    """Whole-sequence VO: run(state, lefts [T,H,W], rights [T,H,W]) ->
-    (state, ((Rs [T,3,3], ts [T,3]), metrics)) with per-frame world->camera
-    poses and each metric stacked over frames."""
+def _make_runner(cfg: StereoVoConfig, rectK, baseline: float,
+                 shared_frames: bool):
     step = _make_step_fn(cfg, rectK, baseline)
 
     def run(state: StereoVoState, lefts, rights):
+        streams = state.xs.shape[:-1]
         Rs, ts, ms = [], [], []
-        for i in range(lefts.shape[0]):
-            state, m = step(state, lefts[i], rights[i])
+        for left, right in zip(lefts, rights):
+            if shared_frames:
+                # converted first: one float32 frame, viewed by every stream
+                left = left.to(torch.float32).expand(streams + left.shape)
+                right = right.to(torch.float32).expand(streams + right.shape)
+            state, m = step(state, left, right)
             Rs.append(state.R)
             ts.append(state.t)
             ms.append(m)
@@ -331,6 +413,13 @@ def make_sequence_runner(cfg: StereoVoConfig, rectK, baseline: float):
         return state, ((torch.stack(Rs), torch.stack(ts)), metrics)
 
     return run
+
+
+def make_sequence_runner(cfg: StereoVoConfig, rectK, baseline: float):
+    """Whole-sequence VO: run(state, lefts [T,H,W], rights [T,H,W]) ->
+    (state, ((Rs [T,3,3], ts [T,3]), metrics)) with per-frame world->camera
+    poses and each metric stacked over frames."""
+    return _make_runner(cfg, rectK, baseline, shared_frames=False)
 
 
 def make_bootstrap(cfg: StereoVoConfig, rectK, baseline: float):
@@ -346,6 +435,57 @@ def make_bootstrap(cfg: StereoVoConfig, rectK, baseline: float):
                       rect_k(left.device), baseline, cfg)
 
     return boot
+
+
+def _for_device(fn, device):
+    """``fn(states, ...)`` bound to ``device`` (None: the card; raises
+    ``RuntimeError`` without one): a state that lies elsewhere is refused,
+    so a batched entry point built for the card never runs on the CPU
+    because it was handed CPU tensors."""
+    dev = resolve_device(device)
+
+    def on_device(states: StereoVoState, *frames):
+        at = states.xs.device
+        if at.type != dev.type or (dev.index is not None
+                                   and at.index != dev.index):
+            raise ValueError(f"state on {at}, built for {dev}")
+        if states.xs.dim() != 2:
+            raise ValueError(f"a stacked state has xs [B, N], got "
+                             f"{tuple(states.xs.shape)}")
+        return fn(states, *frames)
+
+    return on_device
+
+
+def make_batched_step(cfg: StereoVoConfig, rectK, baseline: float,
+                      device=None):
+    """B independent VO streams in one step on ``device``:
+    step(states, lefts [B,H,W], rights [B,H,W]) -> (states, metrics), each
+    metric [B].  One pass of tensor ops over the stream axis, one launch of
+    each kernel, one host sync (any stream low on tracks spawns all, and
+    each stream picks its own result)."""
+    return _for_device(_make_step_fn(cfg, rectK, baseline), device)
+
+
+def make_batched_bootstrap(cfg: StereoVoConfig, rectK, baseline: float,
+                           device=None):
+    """First-frame initializer of a stacked state on ``device``:
+    boot(states, lefts [B,H,W], rights [B,H,W]) -> states."""
+    return _for_device(make_bootstrap(cfg, rectK, baseline), device)
+
+
+def make_batched_sequence_runner(cfg: StereoVoConfig, rectK, baseline: float,
+                                 shared_frames: bool = False, device=None):
+    """T frames of B streams on ``device``:
+    run(states, lefts [T,B,H,W], rights [T,B,H,W]) ->
+    (states, ((Rs [T,B,3,3], ts [T,B,3]), metrics)), each metric [T, B].
+
+    ``shared_frames=True`` takes lefts / rights as [T, H, W] and gives every
+    stream a view of each frame (benchmark / dataset-replay mode: one copy
+    of the sequence on the device, its pyramid built once per frame, B-fold
+    tracking and pose work)."""
+    return _for_device(_make_runner(cfg, rectK, baseline, shared_frames),
+                       device)
 
 
 def bootstrap(state: StereoVoState, left, right, rectK, baseline,

@@ -27,7 +27,24 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    sequence runner timed after a warm-up;
 5. host syncs by call site in two steady-state steps, the kernels one
    steady-state step launches with the device time they take, and the
-   step's stages timed one by one.
+   step's stages timed one by one;
+6. both kernels with the stream axis, one launch for B streams, against
+   their plain versions and against 2-D launches on each stream's data
+   (bit-equal): ``window_gather`` at [8, 512] origins for 7x102 and 7x7,
+   ``klt_track`` at [8, 512] tracks on 8 different frames and on one frame
+   shared by the streams (stride 0); times and bounds at B = 8 and 16;
+7. the B-stream path at full width: batched bootstrap and
+   ``make_batched_sequence_runner(shared_frames=True)`` over 12 frames for
+   B = 4, 8, 16 (and 1, 32, 64, 128, 256, to see where the aggregate rate
+   stops following B), and B = 8 on 8 different sequences (the scene started at
+   8 offsets).  Every stream must keep every pose inside the accuracy bars,
+   stream 0 must agree with the single-stream runner (same seed, same
+   frames) within 1e-4 on ``t``, ``klt_track`` must launch once per step
+   and ``window_gather`` twice per spawn or bootstrap whatever B is, and a
+   steady-state batched step must make one host sync.  Aggregate frames/s
+   (median of 3 runs), the profiled step at B = 1 and B = 16, the stage
+   table and peak device memory at B = 16;
+8. a 1280x720 single-stream run (12 frames, K fx=720, seed 3).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -53,6 +70,9 @@ H, W = 480, 640
 K = np.array([[480.0, 0.0, W / 2], [0.0, 480.0, H / 2], [0.0, 0.0, 1.0]])
 BASELINE = 0.4
 N_FRAMES = 41
+T_BATCHED = 12            # frames of each batched run and of the 1280x720 run
+H_720P, W_720P, FX_720P = 720, 1280, 720.0
+B_ROWS = (1, 4, 8, 16, 32, 64, 128, 256)    # streams of the batched runs
 KERNELS = {
     "window_gather": {
         "source": "boofcv_tpu_torch/kernels/csrc/window_gather.cu",
@@ -108,8 +128,10 @@ def device_ms(fn, reps: int, kernel: str | None = None) -> float:
         check(len(events) > 0, "the profiler saw no kernel")
         return sum(e.device_time for e in events) / reps / 1e3
     times = [e.device_time for e in events if kernel in e.name]
-    check(len(times) == reps, f"the profiler saw {kernel} {len(times)} "
-                              f"times in {reps} calls")
+    # on a busy host the profiler drops events of a long run of launches
+    # (30 of 50 seen once); the median of half of them is still the kernel's
+    check(reps // 2 <= len(times) <= reps,
+          f"the profiler saw {kernel} {len(times)} times in {reps} calls")
     return float(np.median(times)) / 1e3
 
 
@@ -122,13 +144,21 @@ def bound(n_bytes: float, flops: float) -> dict:
             "bytes": int(n_bytes), "flops": int(flops)}
 
 
-def touched_bytes(h: int, w: int, oy, ox, wy: int, wx: int) -> int:
+def touched_bytes(h: int, w: int, oy, ox, wy: int, wx: int,
+                  shared: bool = False) -> int:
     """Bytes of the distinct pixels of an [h, w] f32 image that windows at
-    (oy, ox) read (clamped reads)."""
+    (oy, ox) [N] read (clamped reads).  With [B, N] origins: of B images,
+    stream b's windows on image b, or with ``shared`` of the one image every
+    stream reads."""
     dev = oy.device
-    rows = (oy.long()[:, None] + torch.arange(wy, device=dev)).clamp_(0, h - 1)
-    cols = (ox.long()[:, None] + torch.arange(wx, device=dev)).clamp_(0, w - 1)
-    flat = rows[:, :, None] * w + cols[:, None, :]
+    rows = (oy.long()[..., None] + torch.arange(wy, device=dev)).clamp_(
+        0, h - 1)
+    cols = (ox.long()[..., None] + torch.arange(wx, device=dev)).clamp_(
+        0, w - 1)
+    flat = rows[..., :, None] * w + cols[..., None, :]
+    if oy.dim() == 2 and not shared:
+        flat = flat + (torch.arange(oy.shape[0], device=dev) * (h * w)
+                       )[:, None, None, None]
     return 4 * int(torch.unique(flat).numel())
 
 
@@ -234,18 +264,19 @@ def phase_kernel(dev) -> dict:
             "bound_by": bounds[name]["bound_by"], "library_ms": None}
 
 
-def _klt_case_scene(dev, frames):
-    """512 tracks on the first two left frames of the scene: templates on
-    the first, pyramid of the second.  464 corners from the VO's own
-    detector, 32 tracks within 6 px of a border (negative and clamped window
-    origins), 16 dead slots with all-zero templates (8 at (0, 0), 8 inside
-    the image)."""
+def _klt_case_scene(dev, left0, left1, jitter=None):
+    """512 tracks a stream: templates on ``left0``, pyramid of ``left1``
+    ([H, W] tensors, or [B, H, W] for B streams; ``left1`` may be one frame
+    expanded over the streams).  464 corners from the VO's own detector
+    (moved by ``jitter`` [B, 464] px where the streams share ``left0``, so
+    that they track different points), 32 tracks within 6 px of a border
+    (negative and clamped window origins), 16 dead slots with all-zero
+    templates (8 at (0, 0), 8 inside the image)."""
     from boofcv_tpu_torch.core.pyramid import PyramidConfig
     from boofcv_tpu_torch.feature import klt
     from boofcv_tpu_torch.ip import pyramid_ops
     from boofcv_tpu_torch.sfm import stereo_vo
     scales = (1, 2, 4, 8)
-    left0 = torch.from_numpy(frames[0][0]).to(dev)
     det = stereo_vo._detect_candidates(left0, stereo_vo.StereoVoConfig(), 512)
     rng = np.random.default_rng(5)
     edge = rng.uniform(0, 6, 8).astype(np.float32)
@@ -255,13 +286,16 @@ def _klt_case_scene(dev, frames):
                              np.zeros(8, np.float32), mid_y])
     tail_x = np.concatenate([mid_x, mid_x, edge, W - 1 - edge,
                              np.zeros(8, np.float32), mid_x])
-    ys = torch.cat([det.ys.to(torch.float32)[:464],
-                    torch.from_numpy(tail_y).to(dev)])
-    xs = torch.cat([det.xs.to(torch.float32)[:464],
-                    torch.from_numpy(tail_x).to(dev)])
+    lead = left0.shape[:-2]
+    det_y = det.ys.to(torch.float32)[..., :464]
+    det_x = det.xs.to(torch.float32)[..., :464]
+    if jitter is not None:
+        det_y, det_x = det_y + jitter, det_x - jitter
+    tail = lambda a: torch.from_numpy(a).to(dev).expand(lead + (48,))
+    ys = torch.cat([det_y, tail(tail_y)], dim=-1).contiguous()
+    xs = torch.cat([det_x, tail(tail_x)], dim=-1).contiguous()
     p0 = pyramid_ops.pyramid_average(left0, PyramidConfig(scales))
-    p1 = pyramid_ops.pyramid_average(torch.from_numpy(frames[1][0]).to(dev),
-                                     PyramidConfig(scales))
+    p1 = pyramid_ops.pyramid_average(left1, PyramidConfig(scales))
     tm = klt.sample_templates(p0, pyramid_ops.gradient(p0), ys, xs, scales, 3)
     dead = torch.zeros(512, dtype=torch.bool, device=dev)
     dead[-16:] = True
@@ -293,16 +327,18 @@ def _klt_small_scene(dev):
 
 def _klt_image_bytes(pyr, tm, ys, xs, scales, cfg) -> int:
     """Bytes of the distinct pixels the windows of all levels read: the
-    plain version's level loop, with the origins of each level counted."""
+    plain version's level loop, with the origins of each level counted.
+    Streams that view one frame (stride 0) share its pixels."""
     from boofcv_tpu_torch.feature import klt
     from boofcv_tpu_torch.kernels import window_gather as wg
     total = 0
     cy, cx = ys / scales[-1], xs / scales[-1]
     for lvl in range(len(scales) - 1, -1, -1):
-        h, w = pyr[lvl].shape
+        h, w = pyr[lvl].shape[-2:]
+        shared = pyr[lvl].dim() == 3 and pyr[lvl].stride(0) == 0
         oy, ox, _, _ = wg.aligned_window_origin(cy, cx, cfg.template_radius,
                                                 h, w, 24, 16)
-        total += touched_bytes(h, w, oy, ox, 24, 16)
+        total += touched_bytes(h, w, oy, ox, 24, 16, shared)
         cy_l, cx_l, f = klt._track_level_windowed(
             pyr[lvl], tm.desc[lvl], tm.grad_x[lvl], tm.grad_y[lvl], cy, cx,
             cfg)
@@ -314,13 +350,44 @@ def _klt_image_bytes(pyr, tm, ys, xs, scales, cfg) -> int:
     return total
 
 
+def _klt_args(pyr, tm, ys, xs, scales, cfg):
+    """The arguments of ``klt_track_cuda`` for a scene."""
+    from boofcv_tpu_torch.kernels import window_gather as wg
+    f32 = lambda seq: [t.contiguous() for t in seq]
+    return ([wg.as_planes(p) for p in pyr], f32(tm.desc), f32(tm.grad_x),
+            f32(tm.grad_y), ys, xs, scales, cfg.template_radius,
+            cfg.max_iterations, cfg.max_per_pixel_error, cfg.min_determinant,
+            cfg.convergence_tol)
+
+
+def _klt_bound(pyr, tm, ys, xs, scales, cfg) -> tuple:
+    """(bound, evaluations) of one ``klt_track`` launch from this run's
+    data: every input once, every output once (the distinct image pixels of
+    the mode it runs in, the templates, positions in and out, fault and
+    count out); about 15 flops per patch pixel and evaluation, 6 per pixel
+    and level for the 2x2 system."""
+    from boofcv_tpu_torch.kernels import klt_track as kt
+    n = ys.numel()
+    n_evals = int(kt.klt_track_cuda(*_klt_args(pyr, tm, ys, xs, scales,
+                                               cfg))[3].sum())
+    area = (2 * cfg.template_radius + 1) ** 2
+    img_bytes = _klt_image_bytes(pyr, tm, ys, xs, scales, cfg)
+    tmpl_bytes = len(scales) * 3 * n * area * 4
+    bnd = bound(img_bytes + tmpl_bytes + 8 * n + 16 * n,
+                15 * area * n_evals + 6 * area * n * len(scales))
+    bnd.update(image_bytes=img_bytes, template_bytes=tmpl_bytes)
+    return bnd, n_evals
+
+
 def phase_klt_kernel(dev, frames) -> dict:
     """``klt_track`` vs the plain version on the card."""
     from boofcv_tpu_torch.feature import klt
     from boofcv_tpu_torch.kernels import klt_track as kt
     cfg = klt.KltConfig()
     out = {}
-    for name, scene in (("main_480x640", _klt_case_scene(dev, frames)),
+    left = lambda i: torch.from_numpy(frames[i][0]).to(dev)
+    for name, scene in (("main_480x640",
+                         _klt_case_scene(dev, left(0), left(1))),
                         ("small_128x160", _klt_small_scene(dev))):
         pyr, tm, ys, xs, scales = scene
         n = ys.shape[0]
@@ -361,24 +428,12 @@ def phase_klt_kernel(dev, frames) -> dict:
         check(int((wf[-16:] != klt.TRACK_OK).sum()) == 16
               and int((gf[-16:] != klt.TRACK_OK).sum()) == 16,
               "a zero-template slot tracked")
-        # bound from this run's data: every input once, every output once;
-        # about 15 flops per patch pixel and evaluation
-        f32 = lambda seq: [t.contiguous() for t in seq]
-        args = (f32(pyr), f32(tm.desc), f32(tm.grad_x), f32(tm.grad_y), ys,
-                xs, scales, cfg.template_radius, cfg.max_iterations,
-                cfg.max_per_pixel_error, cfg.min_determinant,
-                cfg.convergence_tol)
-        evals = kt.klt_track_cuda(*args)[3]
-        n_evals = int(evals.sum())
-        area = (2 * cfg.template_radius + 1) ** 2
-        img_bytes = _klt_image_bytes(pyr, tm, ys, xs, scales, cfg)
-        tmpl_bytes = len(scales) * 3 * n * area * 4
-        bnd = bound(img_bytes + tmpl_bytes + 8 * n + 16 * n,
-                    15 * area * n_evals + 6 * area * n * len(scales))
+        args = _klt_args(pyr, tm, ys, xs, scales, cfg)
+        bnd, n_evals = _klt_bound(pyr, tm, ys, xs, scales, cfg)
         print(f"kernel: klt_track {name} evaluations={n_evals} "
               f"({n_evals / n / len(scales):.3f} per track and level, at "
-              f"most {cfg.max_iterations}) image_bytes={img_bytes} "
-              f"template_bytes={tmpl_bytes} bytes={bnd['bytes']} "
+              f"most {cfg.max_iterations}) image_bytes={bnd['image_bytes']} "
+              f"template_bytes={bnd['template_bytes']} bytes={bnd['bytes']} "
               f"flops={bnd['flops']} bound_ms={bnd['bound_ms']:.6f} "
               f"bound_by={bnd['bound_by']}")
         kern = lambda: kt.klt_track_cuda(*args)
@@ -401,21 +456,38 @@ def phase_klt_kernel(dev, frames) -> dict:
     return out
 
 
-def _scene():
+def _scene(n_frames: int, k, h: int, w: int, seed: int):
     """The reference benchmark scene: forward creep with slow yaw over a
     textured plane at z=8 (bench.py's sequence), rendered on the host."""
     from boofcv_tpu_torch.io import simulate
     poses = []
-    for i in range(N_FRAMES):
+    for i in range(n_frames):
         a = 0.002 * i
         R = np.array([[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0],
                       [-np.sin(a), 0.0, np.cos(a)]])
         c = np.array([0.01 * i, 0.0, 0.05 * i])
         poses.append((R, -R @ c))
     frames = simulate.render_stereo_sequence(
-        np.random.default_rng(0), K, BASELINE, poses, H, W,
+        np.random.default_rng(seed), k, BASELINE, poses, h, w,
         plane_origin=(0.0, 0.0, 8.0), texture_scale=55.0)
     return poses, frames
+
+
+def _accuracy(Rs, ts, poses) -> tuple:
+    """(ATE, total motion, final rotation error in degrees) of world->camera
+    poses ``Rs`` [T, 3, 3], ``ts`` [T, 3] (numpy) against the ground truth
+    ``poses`` [T + 1] of the frames from the bootstrap frame on; the
+    estimate's world is the bootstrap frame's camera."""
+    R0, t0 = poses[0]
+    gt = []
+    for R, t in poses[1:]:
+        Rrel = R @ R0.T
+        gt.append((Rrel, t - Rrel @ t0))
+    centres = np.stack([-R.T @ t for R, t in zip(Rs, ts)])
+    gt_c = np.stack([-R.T @ t for R, t in gt])
+    ate = float(np.mean(np.linalg.norm(centres - gt_c, axis=1)))
+    return (ate, float(np.linalg.norm(gt_c[-1])),
+            _rot_err_deg(Rs[-1].T, gt[-1][0]))
 
 
 def _rot_err_deg(Rest_c2w, Rgt_w2c) -> float:
@@ -424,9 +496,11 @@ def _rot_err_deg(Rest_c2w, Rgt_w2c) -> float:
                                               -1, 1))))
 
 
-def _stage_table(dev, cfg, state, lefts, rights) -> None:
+def _stage_table(tag, cfg, state, lefts, rights) -> None:
     """Host wall ms of each stage of a steady-state step, a synchronize
-    before and after each, medians over 10 frames; then a forced spawn."""
+    before and after each, medians over 10 frames; then a forced spawn.
+    ``state`` of one stream with [H, W] frames in ``lefts[i]``, or stacked
+    with [B, H, W] frames."""
     from boofcv_tpu_torch.feature import klt
     from boofcv_tpu_torch.geo import pnp, robust
     from boofcv_tpu_torch.ip import pyramid_ops
@@ -466,8 +540,8 @@ def _stage_table(dev, cfg, state, lefts, rights) -> None:
     med = {k: float(np.median(v)) for k, v in ms.items()}
     med["ransac_p3p_bank_score_select"] = (med.pop("ransac_total")
                                            - med["ransac_sample_indices"])
-    print("stages: host wall ms with a synchronize around each, medians of "
-          "10 steady-state frames (spawn: one forced call): "
+    print(f"stages: {tag} host wall ms with a synchronize around each, "
+          "medians of 10 steady-state frames (spawn: one forced call): "
           + " ".join(f"{k}={v:.3f}" for k, v in med.items()))
 
 
@@ -556,39 +630,407 @@ def phase_slice(dev, poses, frames) -> dict:
     k = lefts.shape[0] // 2
     state = run(boot_state, lefts[:k], rights[:k])[0]
     torch.cuda.synchronize()
+    state, _ = _count_syncs("single stream", step, state, lefts[k:k + 2],
+                            rights[k:k + 2])
+    _profile_step("B=1 (single-stream step)", step, state, lefts[k + 2:k + 9],
+                  rights[k + 2:k + 9])
+    _stage_table("B=1", cfg, state, lefts[k + 2:], rights[k + 2:])
+    return {"launches": launches, "ts": ts.cpu().numpy()}
+
+
+def _count_syncs(tag, step, state, lefts, rights) -> tuple:
+    """Run ``step`` over the frames with sync warnings on; returns the last
+    state and the count of host syncs, printed by call site."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            state, _ = step(state, lefts[k], rights[k])
-            step(state, lefts[k + 1], rights[k + 1])
+            for left, right in zip(lefts, rights):
+                state, _ = step(state, left, right)
         finally:
             torch.cuda.set_sync_debug_mode("default")
     syncs = collections.Counter(
         f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
         if "called a synchronizing CUDA operation" in str(w.message))
-    print(f"syncs: {sum(syncs.values())} host syncs in 2 steady-state "
+    n = sum(syncs.values())
+    print(f"syncs: {tag}: {n} host syncs in {len(lefts)} steady-state "
           f"steps, by call site: {dict(sorted(syncs.items()))}")
+    return state, n
 
-    # device work of one steady-state step
+
+LIBRARY_OPS = ("aten::linalg_cholesky_ex", "aten::linalg_solve_triangular",
+               "aten::rand")
+
+
+def _profile_step(tag, step, state, lefts, rights) -> None:
+    """Step time (host wall, median of the steps before the last, each ended
+    by a synchronize, not profiled), then the last step under the profiler:
+    kernels launched, device busy ms, the idle share of the unprofiled step,
+    and the host and device time of the library calls the step makes."""
+    wall = []
+    for left, right in zip(lefts[:-1], rights[:-1]):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, _ = step(state, left, right)
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t1))
+    step_ms = float(np.median(wall))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
-        step(state, lefts[k + 1], rights[k + 1])
+        step(state, lefts[-1], rights[-1])
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t1)
+        prof_ms = 1e3 * (time.perf_counter() - t1)
     kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
     busy_ms = sum(e.device_time for e in kernels) / 1e3
     klt_ms = sum(e.device_time for e in kernels
                  if "klt_track_kernel" in e.name) / 1e3
-    print(f"device: one steady-state step launches {len(kernels)} kernels, "
-          f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
-          f"(profiled); klt_track_kernel {klt_ms:.6f} ms of it")
-    check(len(kernels) > 0, "the profiled step ran nothing on the device")
-    check(klt_ms > 0, "the profiled step did not run klt_track_kernel")
+    print(f"device: {tag}: step {step_ms:.3f} ms (host wall, median of "
+          f"{len(wall)}); one profiled step launches {len(kernels)} kernels, "
+          f"device busy {busy_ms:.3f} ms ({prof_ms:.3f} ms wall under the "
+          f"profiler), idle share {1 - busy_ms / step_ms:.4f} of the "
+          f"unprofiled step; klt_track_kernel {klt_ms:.6f} ms of it")
+    by_key = {e.key: e for e in prof.key_averages()}
+    for name in LIBRARY_OPS:
+        e = by_key.get(name)
+        if e is not None:
+            print(f"device: {tag}: {name} calls={e.count} host_ms="
+                  f"{e.cpu_time_total / 1e3:.3f} device_ms="
+                  f"{e.device_time_total / 1e3:.3f} (one profiled step; "
+                  f"host time includes the ops it calls)")
+    check(len(kernels) > 0, f"{tag}: the profiled step ran nothing on the "
+                            "device")
+    check(klt_ms > 0, f"{tag}: the profiled step did not run "
+                      "klt_track_kernel")
 
-    _stage_table(dev, cfg, state, lefts[k + 2:], rights[k + 2:])
+
+def _times(kern, plain, kernel_name: str, plain_reps: int) -> dict:
+    """ms over 200 back-to-back calls (CUDA events) and device ms (profiler)
+    of a kernel's wrapper, and the same of its plain version."""
+    return {"ms": cuda_ms(kern, 200), "plain_ms": cuda_ms(plain, plain_reps),
+            "device_ms": device_ms(kern, 50, kernel_name),
+            "plain_device_ms": device_ms(plain, max(plain_reps // 4, 2)),
+            "library_ms": None}
+
+
+def _print_times(what: str, bnd: dict, t: dict) -> dict:
+    print(f"kernel: {what} bytes={bnd['bytes']} flops={bnd['flops']} "
+          f"bound_ms={bnd['bound_ms']:.6f} bound_by={bnd['bound_by']} "
+          f"device_ms={t['device_ms']:.6f} (profiler) kernel_ms={t['ms']:.6f} "
+          f"(CUDA events, 200 back-to-back calls) plain_ms="
+          f"{t['plain_ms']:.6f} plain_device_ms={t['plain_device_ms']:.6f} "
+          f"library_ms=None (no single PyTorch call)")
+    return {**t, "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"]}
+
+
+def phase_batched_kernels(dev, frames) -> dict:
+    """Both kernels with the stream axis: B streams in one launch, against
+    the plain versions and against 2-D launches on each stream's data."""
+    from boofcv_tpu_torch.feature import klt
+    from boofcv_tpu_torch.kernels import klt_track as kt
+    from boofcv_tpu_torch.kernels import window_gather as wg
+    lefts = torch.stack([torch.from_numpy(frames[i][0])
+                         for i in range(17)]).to(dev)
+    out = {"window_gather": {}, "klt_track": {}}
+
+    # window_gather: the sparse SAD's two shapes, [B, 512] origins
+    g = torch.Generator(device=dev).manual_seed(1)
+    ys = torch.randint(0, H, (16, 512), generator=g, device=dev,
+                       dtype=torch.int32)
+    xs = torch.randint(0, W, (16, 512), generator=g, device=dev,
+                       dtype=torch.int32)
+    ys[:, :4] = torch.tensor([0, 1, H - 1, H - 2], dtype=torch.int32)
+    xs[:, :4] = torch.tensor([0, 2, W - 1, 50], dtype=torch.int32)
+    shapes = (("sad_strip_7x102", ys - 3, xs - 3 - 95, 7, 102),
+              ("sad_patch_7x7", ys - 3, xs - 3, 7, 7))
+    for name, oy, ox, wy, wx in shapes:
+        for mode in ("frames", "shared"):
+            imgs = lefts[:8] if mode == "frames" else lefts[0].expand(8, H, W)
+            oy8, ox8 = oy[:8].contiguous(), ox[:8].contiguous()
+            before = wg.launch_count()
+            got = wg.gather_windows(imgs, oy8, ox8, wy, wx)
+            check(wg.launch_count() == before + 1,
+                  "a batched gather_windows did not launch once")
+            want = wg.gather_windows_reference(imgs, oy8, ox8, wy, wx)
+            per_stream = all(torch.equal(got[b], wg.gather_windows_cuda(
+                imgs[b], oy8[b], ox8[b], wy, wx)) for b in range(8))
+            torch.cuda.synchronize()
+            print(f"kernel: window_gather batched {name} {mode} origins="
+                  f"[8, 512] equal_plain={torch.equal(got, want)} "
+                  f"streams_equal_2d_launches={per_stream}")
+            check(torch.equal(got, want),
+                  f"batched window_gather differs from plain at {name} {mode}")
+            check(per_stream, f"batched window_gather differs from the 2-D "
+                              f"launches at {name} {mode}")
+    name, oy, ox, wy, wx = shapes[0]
+    for b in (8, 16):
+        imgs = lefts[:b]
+        oyb, oxb = oy[:b].contiguous(), ox[:b].contiguous()
+        bnd = bound(touched_bytes(H, W, oyb, oxb, wy, wx)
+                    + 4 * b * 512 * wy * wx + 8 * b * 512, 0)
+        t = _times(lambda: wg.gather_windows_cuda(imgs, oyb, oxb, wy, wx),
+                   lambda: wg.gather_windows_reference(imgs, oyb, oxb, wy,
+                                                       wx),
+                   "window_gather_kernel", 50)
+        out["window_gather"][f"B{b}_{name}"] = _print_times(
+            f"window_gather batched {name} origins=[{b}, 512] on {b} frames",
+            bnd, t)
+
+    # klt_track: [B, 512] tracks, B different frames and one shared frame
+    cfg = klt.KltConfig()
+    max_err = 0.0
+    for b in (8, 16):
+        for mode in ("frames", "shared"):
+            if mode == "frames":      # stream i: frame i -> frame i + 1
+                scene = _klt_case_scene(dev, lefts[:b], lefts[1:b + 1])
+            else:                     # every stream: frame 0 -> frame 1
+                jitter = torch.rand((b, 464), device=dev, generator=g) - 0.5
+                scene = _klt_case_scene(dev, lefts[0].expand(b, H, W),
+                                        lefts[1].expand(b, H, W), jitter)
+            pyr, tm, ys_, xs_, scales = scene
+            check(all((p.stride(0) == 0) == (mode == "shared") for p in pyr),
+                  f"the {mode} pyramid has the other layout")
+            what = f"klt_track batched tracks=[{b}, 512] {mode}"
+            if b == 8:
+                before = kt.launch_count()
+                gy, gx, gf = klt.track_pyramid(pyr, tm, ys_, xs_, scales, cfg)
+                check(kt.launch_count() == before + 1,
+                      "a batched track_pyramid did not launch klt_track once")
+                wy_, wx_, wf = klt.track_pyramid_reference(pyr, tm, ys_, xs_,
+                                                           scales, cfg)
+                per_stream = True
+                for i in range(b):
+                    one = klt.KltTemplates(*(tuple(t[i] for t in seq)
+                                             for seq in tm))
+                    oy_, ox_, of = klt.track_pyramid(
+                        tuple(p[i] for p in pyr), one, ys_[i], xs_[i], scales,
+                        cfg)
+                    per_stream &= (torch.equal(gy[i], oy_)
+                                   and torch.equal(gx[i], ox_)
+                                   and torch.equal(gf[i], of))
+                torch.cuda.synchronize()
+                n = gf.numel()
+                same = int((gf == wf).sum())
+                both_ok = (gf == klt.TRACK_OK) & (wf == klt.TRACK_OK)
+                err = max(float((gy - wy_).abs()[both_ok].max()),
+                          float((gx - wx_).abs()[both_ok].max()))
+                max_err = max(max_err, err)
+                print(f"kernel: {what} faults_equal={same}/{n} both_ok="
+                      f"{int(both_ok.sum())} max_abs_err_px={err:.3e} "
+                      f"streams_equal_2d_launches={per_stream}")
+                check(bool(torch.isfinite(gy).all()
+                           and torch.isfinite(gx).all()),
+                      f"{what}: non-finite position")
+                check(same >= 0.99 * n, f"{what}: fault codes equal on {same} "
+                                        f"of {n} tracks (< 99 %)")
+                check(int(both_ok.sum()) >= n // 2,
+                      f"{what}: only {int(both_ok.sum())} tracks OK")
+                check(err <= 2e-3, f"{what}: positions differ by {err} px")
+                check(per_stream, f"{what}: a stream differs from its 2-D "
+                                  "launch")
+            args = _klt_args(pyr, tm, ys_, xs_, scales, cfg)
+            bnd, n_evals = _klt_bound(pyr, tm, ys_, xs_, scales, cfg)
+            print(f"kernel: {what} evaluations={n_evals} image_bytes="
+                  f"{bnd['image_bytes']} template_bytes="
+                  f"{bnd['template_bytes']}")
+            t = _times(lambda: kt.klt_track_cuda(*args),
+                       lambda: klt.track_pyramid_reference(
+                           pyr, tm, ys_, xs_, scales, cfg),
+                       "klt_track_kernel", 8)
+            out["klt_track"][f"B{b}_{mode}"] = _print_times(what, bnd, t)
+    out["klt_track"]["max_abs_err"] = max_err
+    return out
+
+
+def _expected_gathers(metrics, cfg) -> int:
+    """``window_gather`` launches of a bootstrap and the steps that gave
+    ``metrics``: 2 for the bootstrap, 2 for every step in which some stream
+    fell below the respawn threshold (its live tracks before the spawn are
+    the pose's inliers when the pose was accepted, as it must be here)."""
+    low = metrics["inliers"].to(torch.float32) / cfg.num_tracks \
+        < cfg.respawn_below
+    return 2 + 2 * int(low.reshape(low.shape[0], -1).any(dim=1).sum())
+
+
+def phase_batched(dev, poses, frames, single) -> dict:
+    """The B-stream path: batched bootstrap + batched sequence runner."""
+    from boofcv_tpu_torch.kernels import klt_track as kt
+    from boofcv_tpu_torch.kernels import window_gather as wg
+    from boofcv_tpu_torch.sfm import stereo_vo
+    cfg = stereo_vo.StereoVoConfig()
+    T = T_BATCHED
+    L = torch.stack([torch.from_numpy(l) for l, _ in frames]).to(dev)
+    R = torch.stack([torch.from_numpy(r) for _, r in frames]).to(dev)
+    boot = stereo_vo.make_batched_bootstrap(cfg, K, BASELINE)
+    launches = {}
+
+    def drive(tag, b, run, boot_frames, lefts, rights, stream_poses):
+        """One counted run (also the warm-up), its checks, then 3 timed."""
+        wg.reset_launch_count()
+        kt.reset_launch_count()
+        s0 = boot(stereo_vo.init_batched_state(cfg, b, H, W, seed=0),
+                  *boot_frames)
+        s_end, ((Rs, ts), ms) = run(s0, lefts, rights)
+        torch.cuda.synchronize()
+        launches[tag] = {"klt_track": kt.launch_count(),
+                         "window_gather": wg.launch_count()}
+        check(Rs.shape == (T, b, 3, 3) and ts.shape == (T, b, 3),
+              f"{tag}: poses shaped {tuple(Rs.shape)}, {tuple(ts.shape)}")
+        check(bool(torch.isfinite(Rs).all() and torch.isfinite(ts).all()),
+              f"{tag}: non-finite pose")
+        n_ok = ms["pose_ok"].sum(dim=0).tolist()
+        Rn, tn = Rs.cpu().numpy(), ts.cpu().numpy()
+        acc = [_accuracy(Rn[:, i], tn[:, i], stream_poses(i))
+               for i in range(b)]
+        want_wg = _expected_gathers(ms, cfg)
+        print(f"batched: {tag} pose_ok per stream={n_ok} of {T}; worst "
+              f"stream ate={max(a[0] for a in acc):.6f} of motion "
+              f"{acc[0][1]:.6f}, final_rot_err_deg="
+              f"{max(a[2] for a in acc):.6f}; alive_last="
+              f"{ms['alive'][-1].tolist()}; launches klt_track="
+              f"{launches[tag]['klt_track']} window_gather="
+              f"{launches[tag]['window_gather']} (expected {T} and "
+              f"{want_wg})")
+        check(all(n == T for n in n_ok), f"{tag}: pose_ok {n_ok} of {T}")
+        for i, (ate, total, rot) in enumerate(acc):
+            check(ate < 0.15 * total,
+                  f"{tag} stream {i}: ATE {ate} >= 0.15 x motion {total}")
+            check(rot < 2.0, f"{tag} stream {i}: final rotation error {rot} "
+                             "deg >= 2")
+        check(launches[tag]["klt_track"] == T,
+              f"{tag}: klt_track launched {launches[tag]['klt_track']} times "
+              f"in {T} batched steps")
+        check(launches[tag]["window_gather"] == want_wg,
+              f"{tag}: window_gather launched "
+              f"{launches[tag]['window_gather']} times, expected {want_wg}")
+        fps = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            run(s0, lefts, rights)
+            torch.cuda.synchronize()
+            fps.append(b * T / (time.perf_counter() - t1))
+        med = float(np.median(fps))
+        print(f"batched: {tag} aggregate frames/s runs="
+              f"{[round(f, 3) for f in fps]} median={med:.3f} per stream="
+              f"{med / b:.3f} ms_per_batched_step={1e3 * b / med:.3f}")
+        return s0, s_end, ts
+
+    shared = stereo_vo.make_batched_sequence_runner(cfg, K, BASELINE,
+                                                    shared_frames=True)
+    # B = 4, 8, 16 are the reference benchmark's rows; the others show
+    # where the aggregate rate stops following B
+    ends = {}
+    for b in B_ROWS:
+        if b == 16:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+        s0, s_end, ts = drive(
+            f"B={b} shared frames", b, shared,
+            (L[0].expand(b, H, W), R[0].expand(b, H, W)), L[1:T + 1],
+            R[1:T + 1], lambda i: poses[:T + 1])
+        # stream 0 has the single-stream run's seed and frames
+        dt = float(np.abs(ts[:, 0].cpu().numpy() - single["ts"][:T]).max())
+        print(f"batched: B={b} stream 0 against the single-stream runner "
+              f"(seed 0, same frames): max |dt|={dt:.3e} (bar 1e-4)")
+        check(dt <= 1e-4, f"B={b}: stream 0 differs from the single-stream "
+                          f"run by {dt} on t")
+        ends[b] = s_end
+        if b == 16:
+            print(f"batched: B=16 peak device memory MiB="
+                  f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} (the "
+                  f"{N_FRAMES}-frame sequence on the device included)")
+
+    # steady-state step at B = 16: syncs, profile, stage table; and the
+    # profile at the largest B, where the device has most to do
+    step = stereo_vo.make_batched_step(cfg, K, BASELINE)
+    ex = lambda a, b, lo, hi: [f.expand(b, H, W) for f in a[lo:hi]]
+    k = T + 1
+    state, n_sync = _count_syncs("B=16 batched step", step, ends[16],
+                                 ex(L, 16, k, k + 2), ex(R, 16, k, k + 2))
+    check(n_sync == 2, f"{n_sync} host syncs in 2 batched steps: expected one "
+                       "a step")
+    _profile_step("B=16 (batched step)", step, state, ex(L, 16, k + 2, k + 9),
+                  ex(R, 16, k + 2, k + 9))
+    _stage_table("B=16", cfg, state, ex(L, 16, k + 2, k + 12),
+                 ex(R, 16, k + 2, k + 12))
+    top = B_ROWS[-1]
+    _profile_step(f"B={top} (batched step)", step, ends[top],
+                  ex(L, top, k, k + 7), ex(R, top, k, k + 7))
+    del ends
+
+    # 8 different sequences: the scene started at 8 offsets
+    stacked = stereo_vo.make_batched_sequence_runner(cfg, K, BASELINE)
+    seq = lambda a: torch.stack([a[i + 1:i + 1 + T] for i in range(8)], dim=1)
+    _, s_end, _ = drive("B=8 different sequences", 8, stacked,
+                        (L[:8], R[:8]), seq(L), seq(R),
+                        lambda i: poses[i:i + T + 1])
+
+    # a spawn in one stream beside seven that need none: the spawn runs
+    # once for all (two window_gather launches), each stream picks its own
+    # result, and the seven end where they end in a step without a spawn
+    nxt = lambda a: torch.stack([a[i + 1 + T] for i in range(8)])
+    wg.reset_launch_count()
+    calm, _ = step(s_end, nxt(L), nxt(R))
+    check(wg.launch_count() == 0 and bool(torch.equal(calm.next_uid,
+                                                      s_end.next_uid)),
+          "a stream spawned in the step that was to be the calm one")
+    alive = s_end.alive.clone()
+    alive[1, 100:] = False
+    hit, m = step(s_end._replace(alive=alive), nxt(L), nxt(R))
+    torch.cuda.synchronize()
+    others = [i for i in range(8) if i != 1]
+    dt = float((hit.t[others] - calm.t[others]).abs().max())
+    same = bool(torch.equal(hit.alive[others], calm.alive[others])
+                and torch.equal(hit.next_uid[others], calm.next_uid[others])
+                and torch.equal(hit.xs[others], calm.xs[others]))
+    print(f"batched: spawn in stream 1 of 8: window_gather launches="
+          f"{wg.launch_count()} alive {int(alive[1].sum())} -> "
+          f"{int(hit.alive[1].sum())} next_uid {int(s_end.next_uid[1])} -> "
+          f"{int(hit.next_uid[1])}; the other streams: tracks and ids "
+          f"equal={same} max |dt|={dt:.3e} against the step without a spawn")
+    check(wg.launch_count() == 2, f"a spawn launched window_gather "
+                                  f"{wg.launch_count()} times")
+    check(int(hit.next_uid[1]) > int(s_end.next_uid[1])
+          and int(hit.alive[1].sum()) > 200, "stream 1 did not refill")
+    check(same and dt <= 1e-6, "a spawn in stream 1 changed another stream")
     return launches
+
+
+def phase_720p(dev) -> None:
+    """1280x720 single stream, 12 frames (K fx=720, same motion, seed 3)."""
+    from boofcv_tpu_torch.sfm import stereo_vo
+    h, w, T = H_720P, W_720P, T_BATCHED
+    k = np.array([[FX_720P, 0.0, w / 2], [0.0, FX_720P, h / 2],
+                  [0.0, 0.0, 1.0]])
+    t0 = time.perf_counter()
+    poses, frames = _scene(T + 1, k, h, w, seed=3)
+    render_s = time.perf_counter() - t0
+    cfg = stereo_vo.StereoVoConfig()
+    state = stereo_vo.make_bootstrap(cfg, k, BASELINE)(
+        stereo_vo.init_state(cfg, h, w, device=dev),
+        torch.from_numpy(frames[0][0]).to(dev),
+        torch.from_numpy(frames[0][1]).to(dev))
+    run = stereo_vo.make_sequence_runner(cfg, k, BASELINE)
+    lefts = torch.stack([torch.from_numpy(l) for l, _ in frames[1:]]).to(dev)
+    rights = torch.stack([torch.from_numpy(r) for _, r in frames[1:]]).to(dev)
+    _, ((Rs, ts), ms) = run(state, lefts, rights)          # warm-up
+    torch.cuda.synchronize()
+    fps = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        run(state, lefts, rights)
+        torch.cuda.synchronize()
+        fps.append(T / (time.perf_counter() - t1))
+    n_ok = int(ms["pose_ok"].sum())
+    ate, total, rot = _accuracy(Rs.cpu().numpy(), ts.cpu().numpy(), poses)
+    print(f"720p: {w}x{h} single stream pose_ok={n_ok}/{T} ate={ate:.6f} of "
+          f"motion {total:.6f} final_rot_err_deg={rot:.6f} fps_runs="
+          f"{[round(f, 3) for f in fps]} median_fps={np.median(fps):.3f} "
+          f"(rendered {T + 1} frames on the host in {render_s:.2f}s)")
+    check(n_ok == T, f"720p: pose_ok on {n_ok} of {T} frames")
+    check(ate < 0.15 * total, f"720p: ATE {ate} >= 0.15 x motion {total}")
+    check(rot < 2.0, f"720p: final rotation error {rot} deg >= 2")
 
 
 def main() -> int:
@@ -601,18 +1043,35 @@ def main() -> int:
         phase_environment()
         phase_build()
         t0 = time.perf_counter()
-        poses, frames = _scene()
+        poses, frames = _scene(N_FRAMES, K, H, W, seed=0)
         print(f"scene: rendered {N_FRAMES} frames {W}x{H} on the host in "
               f"{time.perf_counter() - t0:.2f}s")
         measured = {"window_gather": phase_kernel(dev),
                     "klt_track": phase_klt_kernel(dev, frames)}
-        launches = phase_slice(dev, poses, frames)
+        single = phase_slice(dev, poses, frames)
+        batched = phase_batched_kernels(dev, frames)
+        launches = {"single stream": single["launches"],
+                    **phase_batched(dev, poses, frames, single)}
+        phase_720p(dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    measured["klt_track"]["max_abs_err"] = max(
+        measured["klt_track"]["max_abs_err"],
+        batched["klt_track"].pop("max_abs_err"))
+    for name in KERNELS:
+        for path, counts in launches.items():
+            if counts[name] < 1:
+                print(f"chip_smoke: FAILED: {name} was not launched on the "
+                      f"path {path!r}", file=sys.stderr)
+                return 1
+    # top-level times and bound: the single-stream shapes, as in every
+    # earlier record; "batched": the B = 8 and B = 16 shapes
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
-         "launches": launches[name], **measured[name]}
+         "launches": sum(c[name] for c in launches.values()),
+         "launches_by_path": {p: c[name] for p, c in launches.items()},
+         **measured[name], "batched": batched[name]}
         for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -190,3 +190,105 @@ def test_klt_track_takes_eight_levels_and_wide_patches(cuda):
         if bool(ok.any()):
             assert float((gy - wy).abs()[ok].max()) <= 2e-3, (scales, radius)
             assert float((gx - wx).abs()[ok].max()) <= 2e-3, (scales, radius)
+
+
+# --- the stream axis: B streams in one launch --------------------------------
+
+@pytest.mark.parametrize("wy,wx", [(7, 102), (7, 7), (24, 16)])
+def test_window_gather_streams_match_plain_and_2d(cuda, wy, wx):
+    """[B, N] origins on [B, h, w] images, one launch: bit-equal to the plain
+    version and, stream by stream, to the 2-D launch; one frame expanded over
+    the streams (stride 0) equals B copies of it."""
+    b, h, w, n = 5, 61, 97, 200
+    g = torch.Generator().manual_seed(wx)
+    imgs = torch.rand((b, h, w), generator=g).to(cuda)
+    oy = torch.randint(-20, h + 10, (b, n), generator=g,
+                       dtype=torch.int32).to(cuda)
+    ox = torch.randint(-110, w + 10, (b, n), generator=g,
+                       dtype=torch.int32).to(cuda)
+    before = wg.launch_count()
+    out = wg.gather_windows(imgs, oy, ox, wy, wx)
+    torch.cuda.synchronize()
+    assert wg.launch_count() == before + 1
+    assert out.shape == (b, n, wy, wx)
+    assert torch.equal(out, wg.gather_windows_reference(imgs, oy, ox, wy, wx))
+    for i in range(b):
+        assert torch.equal(out[i], wg.gather_windows(imgs[i], oy[i], ox[i],
+                                                     wy, wx))
+    shared = imgs[2].expand(b, h, w)
+    assert torch.equal(wg.gather_windows(shared, oy, ox, wy, wx),
+                       wg.gather_windows(shared.contiguous(), oy, ox, wy, wx))
+    with pytest.raises(ValueError, match="stack"):
+        wg.gather_windows(imgs[::2], oy[::2].contiguous(),
+                          ox[::2].contiguous(), wy, wx)
+    with pytest.raises(ValueError, match="origins"):
+        wg.gather_windows(imgs, oy[:3].contiguous(), ox[:3].contiguous(),
+                          wy, wx)
+
+
+def _klt_streams(dev, b=4):
+    """b streams of ``_klt_scene``'s kind, each with its own shift of the
+    texture and its own tracks."""
+    tex = simulate.noise_texture(np.random.default_rng(3), size=256)
+    shifts = [(2, -3), (0, 1), (-1, 2), (1, 1), (-2, 0)][:b]
+    f0 = np.stack([tex[40 + 5 * i:168 + 5 * i, 50:210]
+                   for i in range(b)]).astype(np.float32)
+    f1 = np.stack([tex[40 + 5 * i + sy:168 + 5 * i + sy, 50 + sx:210 + sx]
+                   for i, (sy, sx) in enumerate(shifts)]).astype(np.float32)
+    rng = np.random.default_rng(1)
+    ys = torch.from_numpy(rng.uniform(0, 127, (b, 256)).astype(np.float32))
+    xs = torch.from_numpy(rng.uniform(0, 159, (b, 256)).astype(np.float32))
+    ys, xs = ys.to(dev), xs.to(dev)
+    scales = (1, 2, 4)
+    p0 = pyramid_ops.pyramid_average(torch.from_numpy(f0).to(dev),
+                                     PyramidConfig(scales))
+    p1 = pyramid_ops.pyramid_average(torch.from_numpy(f1).to(dev),
+                                     PyramidConfig(scales))
+    tm = klt.sample_templates(p0, pyramid_ops.gradient(p0), ys, xs, scales, 3)
+    return p1, tm, ys, xs, scales
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_klt_track_streams_match_plain_and_2d(cuda, shared):
+    """[B, N] tracks in one launch, on a stack of frames or on one frame
+    expanded over the streams: against the plain version as the 2-D launch
+    is held (fault codes equal on >= 99 % of tracks, positions within 2e-3 px
+    where both track), and stream b bit-equal to the 2-D launch on stream
+    b's data (the arithmetic per track is the same)."""
+    cfg = klt.KltConfig()
+    p1, tm, ys, xs, scales = _klt_streams(cuda)
+    if shared:
+        p1 = tuple(p[0].expand(p.shape) for p in p1)
+        assert p1[0].stride(0) == 0
+    before = kt.launch_count()
+    gy, gx, gf = klt.track_pyramid(p1, tm, ys, xs, scales, cfg)
+    torch.cuda.synchronize()
+    assert kt.launch_count() == before + 1
+    assert gy.shape == ys.shape and gf.dtype == torch.int32
+    wy, wx, wf = klt.track_pyramid_reference(p1, tm, ys, xs, scales, cfg)
+    assert int((gf == wf).sum()) >= 0.99 * gf.numel()
+    ok = (gf == klt.TRACK_OK) & (wf == klt.TRACK_OK)
+    assert int(ok[0].sum()) >= 64
+    assert float((gy - wy).abs()[ok].max()) <= 2e-3
+    assert float((gx - wx).abs()[ok].max()) <= 2e-3
+    for i in range(ys.shape[0]):
+        one = klt.KltTemplates(*(tuple(t[i] for t in seq) for seq in tm))
+        oy, ox, of = klt.track_pyramid(tuple(p[i] for p in p1), one, ys[i],
+                                       xs[i], scales, cfg)
+        assert torch.equal(gy[i], oy) and torch.equal(gx[i], ox)
+        assert torch.equal(gf[i], of)
+    # the wrapper itself is strict: every other stream of a longer stack is
+    # neither a contiguous stack nor one frame expanded
+    strided = [p.contiguous().repeat(2, 1, 1)[::2] for p in p1]
+    launches = kt.launch_count()
+    with pytest.raises(ValueError, match="stack"):
+        kt.klt_track_cuda(strided, list(tm.desc), list(tm.grad_x),
+                          list(tm.grad_y), ys, xs, scales, 3,
+                          cfg.max_iterations, cfg.max_per_pixel_error,
+                          cfg.min_determinant, cfg.convergence_tol)
+    with pytest.raises(ValueError, match="for ys"):
+        kt.klt_track_cuda([p[:2].contiguous() for p in p1], list(tm.desc),
+                          list(tm.grad_x), list(tm.grad_y), ys, xs, scales, 3,
+                          cfg.max_iterations, cfg.max_per_pixel_error,
+                          cfg.min_determinant, cfg.convergence_tol)
+    assert kt.launch_count() == launches

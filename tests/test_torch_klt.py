@@ -86,13 +86,21 @@ def test_faults_exercised_and_equal():
 
 
 def test_gather_method_not_ported():
+    """The name is from when ``"gather"`` raised.  It is ported now (its
+    parity tests are in test_torch_batched.py): only an unknown method
+    raises, on either entry point."""
     f0, _ = _frames((0, 0))
     p = tpyr.pyramid_average(torch.from_numpy(f0), PyramidConfig(SCALES))
-    t = tklt.sample_templates(p, tpyr.gradient(p), torch.zeros(2),
-                              torch.zeros(2), SCALES, 3)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tklt.track_pyramid(p, t, torch.zeros(2), torch.zeros(2), SCALES,
-                           tklt.KltConfig(method="gather"))
+    at = torch.full((2,), 40.0)
+    t = tklt.sample_templates(p, tpyr.gradient(p), at, at, SCALES, 3)
+    for track in (tklt.track_pyramid, tklt.track_pyramid_reference):
+        with pytest.raises(ValueError, match="'windowed' or 'gather'"):
+            track(p, t, at, at, SCALES, tklt.KltConfig(method="fused"))
+    ty, tx, tf = tklt.track_pyramid(p, t, at, at, SCALES,
+                                    tklt.KltConfig(method="gather"))
+    assert tf.tolist() == [tklt.TRACK_OK] * 2
+    assert float((ty - at).abs().max()) < 1e-3
+    assert float((tx - at).abs().max()) < 1e-3
 
 
 # --- the klt_track kernel's control flow, one track at a time --------------
