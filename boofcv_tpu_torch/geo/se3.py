@@ -1,5 +1,6 @@
 """SE(3) / SO(3) utilities (port of ``boofcv_tpu/geo/se3.py``: ``hat``,
-``exp_so3``, ``log_so3``, ``exp_se3``, ``compose``, ``invert``).
+``exp_so3``, ``log_so3``, ``exp_se3``, ``compose``, ``invert``, ``transform``,
+``rotation_angle``, ``project_to_so3``).
 
 Rotations are 3x3 matrices; everything broadcasts over leading batch dims.
 """
@@ -96,3 +97,21 @@ def compose(Ra, ta, Rb, tb):
 def invert(R, t):
     Rt = R.transpose(-1, -2)
     return Rt, -(Rt @ t[..., None])[..., 0]
+
+
+def transform(R, t, points):
+    """Apply SE3 to [..., N, 3] points."""
+    return points @ R.transpose(-1, -2) + t[..., None, :]
+
+
+def rotation_angle(R):
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    return torch.arccos(torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0))
+
+
+def project_to_so3(M):
+    """Nearest rotation matrix via SVD (sign-corrected)."""
+    U, _, Vt = torch.linalg.svd(M)
+    det = torch.linalg.det(U @ Vt)
+    D = torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1)
+    return (U * D[..., None, :]) @ Vt

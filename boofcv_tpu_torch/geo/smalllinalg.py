@@ -1,6 +1,6 @@
-"""Closed-form small polynomial roots (port of
-``boofcv_tpu/geo/smalllinalg.py``: ``_cbrt``, ``cubic_roots``,
-``quartic_roots``).
+"""Closed-form small-matrix algebra and polynomial roots (port of
+``boofcv_tpu/geo/smalllinalg.py``: ``det3``, ``inv3``, ``_cbrt``,
+``cubic_roots``, ``quartic_roots``).
 
 Branchless ``torch.where`` throughout, so a batch of K systems is one
 sequence of elementwise kernels.  The ``1e-300`` guards are kept as they
@@ -12,6 +12,39 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+def det3(A: torch.Tensor) -> torch.Tensor:
+    return (A[..., 0, 0] * (A[..., 1, 1] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 1])
+            - A[..., 0, 1] * (A[..., 1, 0] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 0])
+            + A[..., 0, 2] * (A[..., 1, 0] * A[..., 2, 1] - A[..., 1, 1] * A[..., 2, 0]))
+
+
+def inv3(A: torch.Tensor) -> torch.Tensor:
+    """Adjugate 3x3 inverse, batched over leading axes.  The determinant
+    guard is the reference's ``1e-300``: live in float64, and in float32 a
+    constant that rounds to 0, so a singular float32 block divides by its
+    own (zero) determinant there as here."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    C00 = e * i - f * h
+    C01 = -(d * i - f * g)
+    C02 = d * h - e * g
+    C10 = -(b * i - c * h)
+    C11 = a * i - c * g
+    C12 = -(a * h - b * g)
+    C20 = b * f - c * e
+    C21 = -(a * f - c * d)
+    C22 = a * e - b * d
+    det = a * C00 + b * C01 + c * C02
+    ds = torch.where(torch.abs(det) < 1e-300, 1e-300, det)
+    adjT = torch.stack([
+        torch.stack([C00, C10, C20], dim=-1),
+        torch.stack([C01, C11, C21], dim=-1),
+        torch.stack([C02, C12, C22], dim=-1),
+    ], dim=-2)
+    return adjT / ds[..., None, None]
 
 
 def _cbrt(x: torch.Tensor) -> torch.Tensor:

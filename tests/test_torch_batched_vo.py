@@ -283,6 +283,10 @@ def test_port_and_chip_smoke_name_no_jax_module():
     files = sorted((root / "boofcv_tpu_torch").rglob("*.py"))
     files.append(root / "chip_smoke.py")
     assert len(files) > 20
+    for new in ("geo/ba.py", "sfm/window_ba.py", "io/bal.py",
+                "io/checkpoint.py", "examples/__init__.py",
+                "examples/bundle_adjustment.py"):
+        assert root / "boofcv_tpu_torch" / new in files, new
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

@@ -292,3 +292,130 @@ def test_klt_track_streams_match_plain_and_2d(cuda, shared):
                           cfg.max_iterations, cfg.max_per_pixel_error,
                           cfg.min_determinant, cfg.convergence_tol)
     assert kt.launch_count() == launches
+
+
+def _ba_scene(dtype, device, model="normalized", V=8, P=120, L=5, seed=0):
+    """A small seeded BA problem: forward motion, 3 to L observations a
+    point, noise 5e-4 of the focal length, the initial guess perturbed."""
+    from boofcv_tpu_torch.geo import ba
+    rng = np.random.default_rng(seed)
+    f = {"normalized": 1.0, "pinhole_f": 450.0, "snavely": -500.0}[model]
+    pts = np.stack([rng.uniform(-2, 2, P), rng.uniform(-2, 2, P),
+                    rng.uniform(4, 8, P)], 1)
+    ts = np.stack([[-0.3 * v, 0.02 * v, -0.05 * v] for v in range(V)])
+    Rs = np.tile(np.eye(3), (V, 1, 1))
+    if model == "snavely":                  # looks down -z
+        pts, ts = pts * [1, 1, -1], ts * [1, 1, -1]
+    views = np.stack([np.sort(rng.permutation(V)[:L]) for _ in range(P)])
+    obs_valid = np.arange(L)[None, :] < rng.integers(3, L + 1, P)[:, None]
+    pc = pts[:, None, :] + ts[views]
+    obs_xy = np.abs(f) * pc[..., :2] / np.abs(pc[..., 2:]) \
+        + rng.normal(0, 5e-4 * np.abs(f), (P, L, 2))
+    obs_xy[~obs_valid] = 0.0
+    intr = {"normalized": np.zeros((V, 0)), "pinhole_f": np.full((V, 1), 452.0),
+            "snavely": np.tile([502.0, 0.0, 0.0], (V, 1))}[model]
+    fixed = np.zeros(V, bool)
+    fixed[:2] = True
+    return ba.make_problem(
+        Rs, ts + rng.normal(0, 0.01, ts.shape) * ~fixed[:, None],
+        pts + rng.normal(0, 0.02, pts.shape), obs_xy,
+        np.where(obs_valid, views, 0), obs_valid, intr=intr, model=model,
+        fixed_views=fixed, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("model", ("normalized", "snavely", "pinhole_f"))
+def test_ba_on_card_matches_cpu(cuda, model):
+    """The float64 solve on the card against the same solve on the CPU:
+    per-iteration costs within 1e-6 relative, poses and points within 1e-7;
+    the float32 mixed solve ends within 5 % of the CPU's cost.  No host sync
+    inside ``optimize``."""
+    import warnings
+    from boofcv_tpu_torch.geo import ba
+    out = {}
+    for dev in ("cpu", cuda):
+        prob = _ba_scene(torch.float64, dev, model)
+        out[str(dev)] = ba.optimize(prob, iterations=12)
+    (cp, ci), (gp, gi) = out["cpu"], out[str(cuda)]
+    np.testing.assert_allclose(gi["costs"].cpu().numpy(), ci["costs"].numpy(),
+                               rtol=1e-6)
+    assert float(gi["final_cost"]) < 1e-2 * float(gi["initial_cost"])
+    for k in ("R", "t", "points"):
+        np.testing.assert_allclose(getattr(gp, k).cpu().numpy(),
+                                   getattr(cp, k).numpy(), atol=1e-7)
+    np.testing.assert_allclose(gp.intr.cpu().numpy(), cp.intr.numpy(),
+                               rtol=1e-7)
+    c32, g32 = (ba.optimize(_ba_scene(torch.float32, dev, model),
+                            iterations=12)[1] for dev in ("cpu", cuda))
+    assert abs(float(g32["final_cost"]) / float(c32["final_cost"]) - 1) < 0.05
+    prob = _ba_scene(torch.float32, cuda, model)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            ba.optimize(prob, iterations=3)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert not syncs, syncs
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+def test_ba_on_card_repeats_bit_for_bit(cuda, dtype):
+    """Two solves of one problem on the card give the same bits: every sum
+    over views runs in an order fixed once per solve; the same sums by
+    ``index_add_`` (atomics) agree only to rounding."""
+    from boofcv_tpu_torch.geo import ba
+    prob = _ba_scene(dtype, cuda, V=30, P=1500, L=8, seed=1)
+    a, ia = ba.optimize(prob, iterations=8)
+    b, ib = ba.optimize(prob, iterations=8)
+    for k in ("R", "t", "points"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
+    assert torch.equal(ia["costs"], ib["costs"])
+    assert float(ia["final_cost"]) < 1e-2 * float(ia["initial_cost"])
+    Jv, _, _ = ba._jacobians(prob)
+    order = ba._view_order(prob.obs_view, 30, prob.obs_valid)
+    x = (Jv * Jv).sum(2)
+    got = ba._sum_by_view(x, order)
+    want = torch.zeros_like(got).index_add_(
+        0, prob.obs_view.long().reshape(-1), x.reshape(-1, x.shape[-1]))
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+def test_window_ba_on_card(cuda):
+    """``SlidingWindowBA`` behind the VO on the card: one host sync a push,
+    a refined window with finite poses and a cost that does not rise."""
+    import warnings
+    from boofcv_tpu_torch.sfm import stereo_vo, window_ba
+    h, w, fx = 120, 160, 150.0
+    k = np.array([[fx, 0, w / 2], [0, fx, h / 2], [0, 0, 1.0]])
+    poses = []
+    for i in range(5):
+        a = 0.004 * i
+        R = np.array([[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0],
+                      [-np.sin(a), 0.0, np.cos(a)]])
+        poses.append((R, -R @ np.array([0.015 * i, 0.0, 0.06 * i])))
+    frames = simulate.render_stereo_sequence(np.random.default_rng(0), k, 0.3,
+                                             poses, h, w)
+    cfg = stereo_vo.StereoVoConfig(num_tracks=256, pyramid_scales=(1, 2, 4),
+                                   max_disparity=48, ransac_hypotheses=192,
+                                   detect_radius=4)
+    vo = stereo_vo.StereoVisualOdometry(cfg, k, 0.3, h, w, device=cuda)
+    wba = window_ba.SlidingWindowBA(window=5, device=cuda)
+    for left, right in frames:
+        assert vo.process(left, right)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                wba.push(vo.state, fx, fx, w / 2, h / 2)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        assert len([c for c in caught if "called a synchronizing CUDA "
+                    "operation" in str(c.message)]) == 1
+    refined, info = wba.optimize()
+    assert len(refined) == 5 and info["tracks"] >= 12
+    assert all(np.isfinite(R).all() and np.isfinite(t).all()
+               for R, t in refined)
+    assert float(info["final_cost"]) <= float(info["initial_cost"])

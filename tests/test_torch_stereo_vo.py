@@ -252,7 +252,10 @@ def test_default_device_is_the_card(entry, monkeypatch):
 def test_port_imports_no_jax():
     code = ("import sys, boofcv_tpu_torch.sfm.stereo_vo, "
             "boofcv_tpu_torch.io.simulate, boofcv_tpu_torch.kernels._nvcc, "
-            "boofcv_tpu_torch.kernels.klt_track; "
+            "boofcv_tpu_torch.kernels.klt_track, boofcv_tpu_torch.geo.ba, "
+            "boofcv_tpu_torch.sfm.window_ba, boofcv_tpu_torch.io.bal, "
+            "boofcv_tpu_torch.io.checkpoint, "
+            "boofcv_tpu_torch.examples.bundle_adjustment; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'boofcv_tpu.'))); print(bad); "
             "sys.exit(1 if bad else 0)")
