@@ -49,6 +49,19 @@ __global__ void window_gather_kernel(const float* __restrict__ imgs,
   }
 }
 
+// Returns at once: what a launch of the gather's grid costs the device
+// before any window is read (a measurement probe, not on any path).
+__global__ void window_gather_empty_kernel() {}
+
+// The same under another name, so that a trace can tell its padding from
+// the probe above (see window_gather_pad_launch).
+__global__ void window_gather_pad_kernel() {}
+
+int threads_for(int area) {
+  const int threads = ((area + 31) / 32) * 32;
+  return threads > 256 ? 256 : threads;
+}
+
 }  // namespace
 
 extern "C" {
@@ -63,11 +76,26 @@ int window_gather_launch(const float* img, long long img_stride, int h, int w,
   if (n <= 0) return 0;
   if (per_image <= 0 || img_stride < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int area = wy * wx;
-  int threads = ((area + 31) / 32) * 32;
-  if (threads > 256) threads = 256;
-  window_gather_kernel<<<n, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  window_gather_kernel<<<n, threads_for(wy * wx), 0,
+                         static_cast<cudaStream_t>(stream)>>>(
       img, img_stride, h, w, oy, ox, per_image, wy, wx, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The empty kernel on the grid and block that `n` windows of wy x wx get.
+int window_gather_empty_launch(int n, int wy, int wx, void* stream) {
+  if (n <= 0) return 0;
+  window_gather_empty_kernel<<<n, threads_for(wy * wx), 0,
+                               static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `count` one-warp launches of the pad kernel, back to back.  A profiler
+// that loses the first device events of a trace loses these when they lead
+// it; they carry no work.
+int window_gather_pad_launch(int count, void* stream) {
+  for (int i = 0; i < count; ++i)
+    window_gather_pad_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -62,6 +62,10 @@ def _kernel_lib():
     lib.window_gather_launch.argtypes = [vp, ctypes.c_longlong, ci, ci, vp,
                                          vp, ci, ci, ci, ci, vp, vp]
     lib.window_gather_launch.restype = ci
+    lib.window_gather_empty_launch.argtypes = [ci, ci, ci, vp]
+    lib.window_gather_empty_launch.restype = ci
+    lib.window_gather_pad_launch.argtypes = [ci, vp]
+    lib.window_gather_pad_launch.restype = ci
     lib.window_gather_error_string.argtypes = [ci]
     lib.window_gather_error_string.restype = ctypes.c_char_p
     return lib
@@ -145,6 +149,34 @@ def gather_windows_cuda(image: torch.Tensor, oy: torch.Tensor,
         raise RuntimeError(f"window_gather launch failed: {msg} ({err})")
     _launches += 1
     return out
+
+
+def _launch_probe(device, what: str, launch) -> None:
+    lib = _kernel_lib()
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        err = launch(lib, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        msg = lib.window_gather_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: {msg} ({err})")
+
+
+def launch_empty(n: int, wy: int, wx: int, device) -> None:
+    """Launch a kernel that returns at once on the grid and block that
+    ``n`` windows of wy x wx get: what one such launch costs the device
+    whatever it reads.  A measurement probe; it is not counted as a launch
+    of the gather."""
+    _launch_probe(device, "empty launch", lambda lib, stream:
+                  lib.window_gather_empty_launch(n, wy, wx, stream))
+
+
+def launch_pads(count: int, device) -> None:
+    """``count`` one-warp launches of ``window_gather_pad_kernel``, which
+    returns at once: padding for the head of a profiler trace, told from
+    every other kernel by its name.  Not counted as launches of the
+    gather."""
+    _launch_probe(device, "pad launch", lambda lib, stream:
+                  lib.window_gather_pad_launch(count, stream))
 
 
 def gather_windows(image: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main paths (stereo VO, bundle adjustment) once on
-one CUDA card.
+"""Drive the PyTorch port's main paths (stereo VO, bundle adjustment, the
+dense-image breadth path) once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -20,7 +20,9 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    where both say TRACK_OK (the kernel sums the 49 patch terms in another
    order than ``torch.sum``).  Times from CUDA events (200 back-to-back
    calls: the rate at which the host can launch them) and from the profiler
-   (the kernel's own time on the device), each beside its bound;
+   (the kernel's own time on the device), each beside its bound, and for
+   the two sparse-SAD shapes beside an empty launch of the same grid (a
+   kernel in ``window_gather.cu`` that returns at once);
 4. the slice at full width: the 640x480 reference scene (41 frames) through
    ``StereoVisualOdometry`` with the default config (512 tracks, pyramid
    1/2/4/8, disparity 0-96, 256 RANSAC hypotheses), checked against the
@@ -61,7 +63,24 @@ Phases, each printed on its own line(s); any failure exits non-zero:
     ``SlidingWindowBA(window=8)`` behind it: every state pushed, the window
     solved from the third frame on; both hand kernels' launches counted;
 12. ``ba_scale:`` 1000 views, 100,000 points, 3 iterations: ms per
-    iteration, the Cholesky's share, peak memory.
+    iteration, the Cholesky's share, peak memory;
+13. the dense-image breadth path at the reference breadth benchmark's size,
+    each phase with ms per call, kernels, device busy ms, idle share, host
+    syncs (none allowed), peak memory, its bound and a numpy baseline timed
+    on the host: ``breadth_bm:`` SAD block matching on a 640x480 pair, 96
+    disparities, radius 3 (median error against the true plane at most 0.5
+    px, valid share at least 0.6, within 0.1 px of the numpy BM);
+    ``breadth_sgm:`` 4-path census SGM on the same pair (the same two bars;
+    two aggregations bit-equal); ``breadth_surf:`` integral image, Fast
+    Hessian (500 features an octave, 2 octaves), Haar orientation, SURF-64
+    (at least 300 features of unit norm; at least 80 % found again in the
+    image moved by (4, 6) px); ``breadth_assoc:`` mutual nearest neighbour
+    over 10,000 x 10,000 x 64 descriptors, full matrix and tiled (the
+    numpy count within 5; tiled equal to full); ``breadth_flow:``
+    Horn-Schunck, 200 iterations (endpoint error within 0.05 px of a numpy
+    solver's); ``breadth_cpu_vs_card:`` each new module family on the card
+    against the same call on the CPU at the test size.  These phases launch
+    neither hand kernel: the reference's modules reach no TPU kernel.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -90,6 +109,10 @@ N_FRAMES = 41
 T_BATCHED = 12            # frames of each batched run and of the 1280x720 run
 H_720P, W_720P, FX_720P = 720, 1280, 720.0
 B_ROWS = (1, 4, 8, 16, 32, 64, 128, 256)    # streams of the batched runs
+DMAX = 96                 # disparities of the dense BM and SGM phases
+N_ASSOC = 10_000          # descriptors a side of the association phase
+HS_ITERATIONS = 200       # Horn-Schunck iterations of the flow phase
+HS_INSET = 40             # px cut off each border before its error is read
 KERNELS = {
     "window_gather": {
         "source": "boofcv_tpu_torch/kernels/csrc/window_gather.cu",
@@ -103,6 +126,10 @@ KERNELS = {
 # tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
+# what leads every profiler trace: a wait after its first launches, then
+# this many launches of an empty kernel (see _trace)
+PROFILER_LEAD_S = 0.02
+PROFILER_PADS = 64
 
 
 class SmokeFailure(Exception):
@@ -129,24 +156,59 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _trace(run, attempts: int = 5):
+    """(the CUDA events of ``run()`` under the profiler, the profiler).
+
+    On this kind of host the profiler loses the first device events of a
+    trace: none in a young process, later on now none, now the first few
+    hundred, whatever the trace holds (the host-side launch records are all
+    there; waiting before the first launch or after the last changes
+    nothing, so what counts is the time since the trace's first launch).  A
+    trace of one or two kernels then comes back empty.  So every trace is
+    led by launches of a kernel that returns at once
+    (``window_gather_pad_kernel``): a few, then ``PROFILER_LEAD_S`` of
+    waiting, then ``PROFILER_PADS`` more, then ``run()``.  What is lost is
+    padding: while one pad is seen, everything after the pads was seen.  A
+    trace that shows no pad is taken again with four times the wait and the
+    pads.  The pads are left out of the events returned."""
+    from boofcv_tpu_torch.kernels import window_gather as wg
+    lead, pads = PROFILER_LEAD_S, PROFILER_PADS
+    for attempt in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wg.launch_pads(8, "cuda")           # the current device
+            torch.cuda.synchronize()
+            time.sleep(lead)
+            wg.launch_pads(pads, "cuda")
+            run()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        kept = [e for e in events if "window_gather_pad_kernel" not in e.name]
+        if len(kept) < len(events):
+            check(len(kept) > 0, "the profiled call ran nothing on the device")
+            return kept, prof
+        print(f"profiler: none of 8 + {pads} leading pads seen ({lead} s "
+              f"between them), {len(kept)} other device events (attempt "
+              f"{attempt + 1} of {attempts})")
+        lead, pads = 4 * lead, 4 * pads
+    raise SmokeFailure(f"the profiler lost the head of {attempts} traces")
+
+
 def device_ms(fn, reps: int, kernel: str | None = None) -> float:
     """Device time of one ``fn()`` from the profiler: the median time of
     the kernel whose name contains ``kernel`` (which must run once per
     call), or with no name the summed time of every kernel, per call."""
     fn()
-    # on a busy host the profiler drops events of a long run of launches
-    # (30 of 50 seen once, 1 of 50 once); the median of half of them is
-    # still the kernel's, and a trace with fewer is taken again
+
+    def run():
+        for _ in range(reps):
+            fn()
+    # the median of half of the launches is still the kernel's; a trace with
+    # fewer is taken again
     for attempt in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        events, _ = _trace(run)
         if kernel is None:
-            check(len(events) > 0, "the profiler saw no kernel")
             return sum(e.device_time for e in events) / reps / 1e3
         times = [e.device_time for e in events if kernel in e.name]
         if reps // 2 <= len(times) <= reps:
@@ -293,6 +355,16 @@ def phase_kernel(dev) -> dict:
         sad[sname] = _print_times(
             f"window_gather {sname} origins=[512] window={wy}x{wx}",
             bounds[sname], t)
+        # what a launch of this grid costs the device before it reads a
+        # pixel: the same grid and block, a kernel that returns at once
+        n = oy.shape[0]
+        empty = device_ms(lambda: wg.launch_empty(n, wy, wx, dev), 50,
+                          "window_gather_empty_kernel")
+        sad[sname]["empty_launch_device_ms"] = empty
+        print(f"kernel: window_gather {sname} an empty launch of the same "
+              f"grid ({n} blocks): device_ms={empty:.6f} (profiler); the "
+              f"gather's {sad[sname]['device_ms']:.6f} is "
+              f"{sad[sname]['device_ms'] / empty:.2f}x that")
     # top level: the larger of the two shapes the main path launches; the
     # 24x16 KLT window has not been on it since klt_track took KLT over
     return {"max_abs_err": max_err, **sad["sad_strip_7x102"],
@@ -747,22 +819,18 @@ def _profile_step(tag, step, state, lefts, rights) -> None:
         torch.cuda.synchronize()
         wall.append(1e3 * (time.perf_counter() - t1))
     step_ms = float(np.median(wall))
-    for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t1 = time.perf_counter()
-            step(state, lefts[-1], rights[-1])
-            torch.cuda.synchronize()
-            prof_ms = 1e3 * (time.perf_counter() - t1)
-        kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
-        busy_ms = sum(e.device_time for e in kernels) / 1e3
-        klt_ms = sum(e.device_time for e in kernels
-                     if "klt_track_kernel" in e.name) / 1e3
-        if klt_ms > 0:
-            break
-        # the profiler drops events on a busy host (see device_ms)
-        print(f"profiler: {tag}: {len(kernels)} kernels seen, none of them "
-              f"klt_track_kernel (attempt {attempt + 1} of 3)")
+    wall_prof = []
+
+    def last_step():
+        t1 = time.perf_counter()
+        step(state, lefts[-1], rights[-1])
+        torch.cuda.synchronize()
+        wall_prof.append(1e3 * (time.perf_counter() - t1))
+    kernels, prof = _trace(last_step)
+    prof_ms = wall_prof[-1]
+    busy_ms = sum(e.device_time for e in kernels) / 1e3
+    klt_ms = sum(e.device_time for e in kernels
+                 if "klt_track_kernel" in e.name) / 1e3
     print(f"device: {tag}: step {step_ms:.3f} ms (host wall, median of "
           f"{len(wall)}); one profiled step launches {len(kernels)} kernels, "
           f"device busy {busy_ms:.3f} ms ({prof_ms:.3f} ms wall under the "
@@ -1268,11 +1336,7 @@ def _solve_ms(fn, reps: int = 5) -> list:
 
 def _profile_call(fn) -> tuple:
     """(kernels launched, device busy ms, profiler) of one ``fn()``."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    kernels, prof = _trace(fn)
     return len(kernels), sum(e.device_time for e in kernels) / 1e3, prof
 
 
@@ -1616,6 +1680,633 @@ def phase_ba_scale(dev) -> None:
           "ba_scale: non-finite result")
 
 
+# ---------------------------------------------------------------------------
+# the dense-image breadth path: dense BM and SGM, SURF, association,
+# Horn-Schunck, each at the reference breadth benchmark's size
+# ---------------------------------------------------------------------------
+
+def scene_pair(seed=0, h=None, w=None, dmax=None, extra_rows=0):
+    """The breadth benchmark's stereo pair (numpy only): a band-limited
+    texture on a plane whose disparity grows with the row from 18 to 70 at
+    96 disparities, so left(y, x) = right(y, x - d(y)) up to the sampling.
+    Returns (left, right, disparity, texture); ``extra_rows`` more rows of
+    texture than of image let a caller cut a shifted copy."""
+    h, w, dmax = h or H, w or W, dmax or DMAX
+    rng = np.random.default_rng(seed)
+    tex = rng.normal(0, 1, (h + extra_rows, w + dmax + 8)).astype(np.float32)
+    k = np.hanning(9)
+    k /= k.sum()
+    tex = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), 1, tex)
+    tex = np.apply_along_axis(lambda c: np.convolve(c, k, "same"), 0, tex)
+    tex = (128 + 60 * tex / tex.std()).astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    disp = (18 + 52 * yy / h) * (dmax / 96)
+    cols = xx + disp
+    c0 = np.floor(cols).astype(int)
+    a = cols - c0
+    rows = yy.astype(int)
+    right = (1 - a) * tex[rows, c0] + a * tex[rows, c0 + 1]
+    return tex[:h, :w].copy(), right.astype(np.float32), disp, tex
+
+
+def np_box_sum(vol, r):
+    """Box sum over the last two axes by prefix sums."""
+    if r == 0:
+        return vol
+    p = np.pad(vol, [(0, 0)] * (vol.ndim - 2) + [(r + 1, r), (r + 1, r)])
+    c = p.cumsum(-2).cumsum(-1)
+    s = 2 * r + 1
+    return (c[..., s:, s:] - c[..., :-s, s:] - c[..., s:, :-s]
+            + c[..., :-s, :-s])
+
+
+def np_block_match(left, right, dmax, r=3):
+    """Vectorized numpy BM on the host: SAD volume by shifts and box sums,
+    winner-take-all, left-right check, subpixel parabola (the same spec as
+    ``block_match``, written independently; its out-of-range sentinel is
+    300 a pixel)."""
+    hh, ww = left.shape
+    big = 300.0
+    cost = np.full((dmax, hh, ww), big, np.float32)
+    for d in range(dmax):
+        cost[d, :, d:] = np.abs(left[:, d:] - right[:, :ww - d if d else ww])
+    agg = np_box_sum(cost, r)
+    best = agg.argmin(0)
+    bc = np.take_along_axis(agg, best[None], 0)[0]
+    costR = np.full_like(cost, big * (2 * r + 1) ** 2)
+    for d in range(dmax):
+        costR[d, :, :ww - d if d else ww] = agg[d, :, d:]
+    bestR = costR.argmin(0)
+    xr = np.clip(np.arange(ww)[None, :] - best, 0, ww - 1)
+    lr_ok = np.abs(np.take_along_axis(bestR, xr, 1) - best) <= 1
+    dm = np.clip(best - 1, 0, dmax - 1)
+    dp = np.clip(best + 1, 0, dmax - 1)
+    cm = np.take_along_axis(agg, dm[None], 0)[0]
+    cp = np.take_along_axis(agg, dp[None], 0)[0]
+    denom = np.maximum(cm + cp - 2 * bc, 1e-9)
+    sub = best + np.clip(0.5 * (cm - cp) / denom, -0.5, 0.5)
+    return np.where(lr_ok, sub, -1.0)
+
+
+def np_census5(img):
+    """5x5 census transform -> uint32."""
+    p = np.pad(img, 2, mode="edge")
+    h, w = img.shape
+    out = np.zeros((h, w), np.uint32)
+    bit = 0
+    for dy in range(-2, 3):
+        for dx in range(-2, 3):
+            if dy == 0 and dx == 0:
+                continue
+            nb = p[2 + dy:2 + dy + h, 2 + dx:2 + dx + w]
+            out |= (nb < img).astype(np.uint32) << np.uint32(bit)
+            bit += 1
+    return out
+
+
+def np_popcount32(x):
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (x * 0x01010101) >> 24
+
+
+def np_sgm(left, right, dmax, p1=5.0, p2=60.0):
+    """Vectorized numpy SGM on the host: 5x5 census cost and four path
+    aggregations, each scan sequential along its path and vectorized over
+    the other axis and the disparities; integer winner, no validation."""
+    hh, ww = left.shape
+    cl = np_census5(left)
+    cr = np_census5(right)
+    cost = np.full((hh, ww, dmax), 24.0, np.float32)
+    for d in range(dmax):
+        cost[:, d:, d] = np_popcount32(cl[:, d:] ^ cr[:, :ww - d if d else ww])
+
+    def scan(c):
+        out = np.empty_like(c)
+        out[:, 0] = c[:, 0]
+        for x in range(1, c.shape[1]):
+            prev = out[:, x - 1]                       # [H, D]
+            m = prev.min(-1, keepdims=True)
+            shift_m = np.minimum(np.roll(prev, 1, -1), np.roll(prev, -1, -1))
+            shift_m[:, 0] = prev[:, 1]
+            shift_m[:, -1] = prev[:, -2]
+            best = np.minimum(prev, np.minimum(shift_m + p1, m + p2))
+            out[:, x] = c[:, x] + best - m
+        return out
+
+    agg = scan(cost)
+    agg = agg + scan(cost[:, ::-1])[:, ::-1]
+    ct = cost.transpose(1, 0, 2)
+    agg = agg + scan(ct).transpose(1, 0, 2)
+    agg = agg + scan(ct[:, ::-1])[:, ::-1].transpose(1, 0, 2)
+    return agg.argmin(-1)
+
+
+def np_surf_detdesc(img, max_feats=1000):
+    """Vectorized numpy SURF on the host (float64): integral image,
+    two-octave Fast-Hessian box responses, 3x3x3 nonmax and top-K, 64-D
+    descriptors from indexed integral-image lookups over all features at
+    once.  Timed as the host's figure; its features are not compared."""
+    h, w = img.shape
+    ii = np.zeros((h + 1, w + 1), np.float64)
+    ii[1:, 1:] = img.cumsum(0).cumsum(1)
+
+    def box(y0, x0, y1, x1):
+        y0, y1 = np.clip(y0, 0, h), np.clip(y1, 0, h)
+        x0, x1 = np.clip(x0, 0, w), np.clip(x1, 0, w)
+        return ii[y1, x1] - ii[y0, x1] - ii[y1, x0] + ii[y0, x0]
+
+    yy, xx = np.mgrid[0:h, 0:w]
+
+    def hessian(size):
+        l = size // 3
+        b = (size - 1) // 2
+        half = l // 2
+        dxx = (box(yy - l + 1, xx - b, yy + l, xx + b + 1)
+               - 3.0 * box(yy - l + 1, xx - half, yy + l, xx + half + 1))
+        dyy = (box(yy - b, xx - l + 1, yy + b + 1, xx + l)
+               - 3.0 * box(yy - half, xx - l + 1, yy + half + 1, xx + l))
+        dxy = (box(yy - l, xx - l, yy + 1, xx + 1)
+               + box(yy + 1, xx + 1, yy + l + 1, xx + l + 1)
+               - box(yy - l, xx + 1, yy + 1, xx + l + 1)
+               - box(yy + 1, xx - l, yy + l + 1, xx + 1))
+        n = 1.0 / (size * size)
+        return (dxx * n) * (dyy * n) - 0.81 * (dxy * n) ** 2
+
+    feats = []
+    for sizes in ((9, 15, 21, 27), (15, 27, 39, 51)):
+        resp = np.stack([hessian(s) for s in sizes])
+        mid = resp[1:-1]
+        is_max = np.ones_like(mid, bool)
+        for ds in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                for dx in (-1, 0, 1):
+                    if ds == dy == dx == 0:
+                        continue
+                    is_max &= mid >= np.roll(resp, (ds, dy, dx),
+                                             (0, 1, 2))[1:-1]
+        cand = np.where(is_max, mid, -np.inf).reshape(-1)
+        k = min(max_feats // 2, cand.size)
+        top = np.argpartition(cand, -k)[-k:]
+        s_i, rem = np.divmod(top, h * w)
+        fy, fx = np.divmod(rem, w)
+        feats.append((fy, fx, np.array(sizes)[s_i + 1] / 9.0 * 1.2))
+    fy = np.concatenate([f[0] for f in feats])[:max_feats]
+    fx = np.concatenate([f[1] for f in feats])[:max_feats]
+    fs = np.concatenate([f[2] for f in feats])[:max_feats]
+
+    n = len(fy)
+    g = np.arange(-9.5, 10.0, 1.0)                 # 20 samples per axis
+    sy = fy[:, None, None] + fs[:, None, None] * g[None, :, None]
+    sx = fx[:, None, None] + fs[:, None, None] * g[None, None, :]
+    syi = np.clip(sy.astype(int), 2, h - 3)
+    sxi = np.clip(sx.astype(int), 2, w - 3)
+    r2 = np.maximum((fs * 2).astype(int), 1)[:, None, None]
+    hx = (box(syi - r2, sxi, syi + r2, sxi + r2)
+          - box(syi - r2, sxi - r2, syi + r2, sxi))
+    hy = (box(syi, sxi - r2, syi + r2, sxi + r2)
+          - box(syi - r2, sxi - r2, syi, sxi + r2))
+    w_g = np.exp(-(g[:, None] ** 2 + g[None, :] ** 2) / (2 * 3.3 ** 2))
+    hx = (hx * w_g).reshape(n, 4, 5, 4, 5).transpose(0, 1, 3, 2, 4)
+    hy = (hy * w_g).reshape(n, 4, 5, 4, 5).transpose(0, 1, 3, 2, 4)
+    desc = np.stack([hx.sum((3, 4)), np.abs(hx).sum((3, 4)),
+                     hy.sum((3, 4)), np.abs(hy).sum((3, 4))],
+                    -1).reshape(n, 64)
+    desc /= np.maximum(np.linalg.norm(desc, axis=1, keepdims=True), 1e-12)
+    return fy, fx, desc
+
+
+def np_associate(da, db):
+    """Mutual nearest neighbour on the host: one BLAS product and two
+    argmins."""
+    s = (-2.0 * da @ db.T + (da * da).sum(1)[:, None]
+         + (db * db).sum(1)[None, :])
+    fwd = s.argmin(1)
+    bwd = s.argmin(0)
+    return fwd, bwd[fwd] == np.arange(len(da))
+
+
+def np_horn_schunck(i1, i2, alpha=20.0, iterations=200):
+    """Vectorized numpy single-level Horn-Schunck on the host, float64: the
+    derivative estimates ``horn_schunck`` documents (central differences
+    with replicated edges, averaged over the two frames) and Jacobi
+    iterations over the whole field.  The reference breadth benchmark's
+    baseline takes forward differences instead and ends 0.06 px of endpoint
+    error away from the function it is held against."""
+    i1 = i1.astype(np.float64)
+    i2 = i2.astype(np.float64)
+
+    def central(f, axis):
+        p = np.pad(f, 1, "edge")
+        return (0.5 * (p[2:, 1:-1] - p[:-2, 1:-1]) if axis == 0
+                else 0.5 * (p[1:-1, 2:] - p[1:-1, :-2]))
+
+    dx = 0.5 * (central(i1, 1) + central(i2, 1))
+    dy = 0.5 * (central(i1, 0) + central(i2, 0))
+    dt = i2 - i1
+    a2 = alpha * alpha
+    u = np.zeros_like(i1)
+    v = np.zeros_like(i1)
+
+    def lap_avg(f):
+        p = np.pad(f, 1, "edge")
+        return ((p[1:-1, :-2] + p[1:-1, 2:] + p[:-2, 1:-1] + p[2:, 1:-1]) / 6.0
+                + (p[:-2, :-2] + p[:-2, 2:] + p[2:, :-2] + p[2:, 2:]) / 12.0)
+
+    for _ in range(iterations):
+        ub = lap_avg(u)
+        vb = lap_avg(v)
+        num = dx * ub + dy * vb + dt
+        den = a2 + dx * dx + dy * dy
+        u = ub - dx * num / den
+        v = vb - dy * num / den
+    return u, v
+
+
+def _host_ms(fn) -> tuple:
+    """(host wall ms of one call, its result): the numpy baselines take
+    seconds, one repetition each."""
+    t0 = time.perf_counter()
+    out = fn()
+    return 1e3 * (time.perf_counter() - t0), out
+
+
+def _breadth(tag: str, what: str, fn, dev, bnd: dict, traffic: dict) -> tuple:
+    """Run ``fn`` on the card as a breadth phase measures it and print the
+    phase's line: host syncs and peak memory of one call, ms per call (CUDA
+    events around the whole call, 5 after a warm-up), kernels, device busy
+    ms and idle share of one profiled call, the function's bound (inputs
+    read once, outputs written once, its operations) and the least time for
+    the bytes this formulation moves.  Returns (fn's result, median ms).
+    A host sync inside ``fn`` fails the run."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, syncs = _count_sync_warnings(fn)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    ms = _solve_ms(fn)
+    n_kernels, busy_ms, _ = _profile_call(fn)
+    med = float(np.median(ms))
+    print(f"{tag}: {what}: ms per call (CUDA events around the whole call, 5 "
+          f"after a warm-up)={[round(m, 3) for m in ms]} median={med:.3f}; "
+          f"one profiled call launches {n_kernels} kernels, device busy "
+          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / med:.4f} of the "
+          f"median call; host syncs={sum(syncs.values())} "
+          f"{dict(sorted(syncs.items()))}; peak device memory MiB={peak:.1f}; "
+          f"bound (inputs and outputs once, {bnd['flops']} operations, "
+          f"{bnd['bytes']} B)={bnd['bound_ms']:.6f} ms by {bnd['bound_by']}; "
+          f"the {traffic['bytes']} B this formulation moves take at least "
+          f"{traffic['bound_ms']:.6f} ms")
+    check(sum(syncs.values()) == 0, f"{tag}: host syncs: {dict(syncs)}")
+    check(n_kernels > 0, f"{tag}: nothing ran on the device")
+    return out, med
+
+
+def _breadth_stages(tag: str, stages) -> None:
+    """Where a breadth phase's time goes: each (name, fn) stage alone, host
+    wall ms with a synchronize before and after (median of 3 after a
+    warm-up), and the kernels and device busy ms of one profiled call."""
+    parts = []
+    for name, fn in stages:
+        fn()
+        wall = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall.append(1e3 * (time.perf_counter() - t0))
+        n_kernels, busy_ms, _ = _profile_call(fn)
+        parts.append(f"{name}: wall {np.median(wall):.3f} ms, {n_kernels} "
+                     f"kernels, device busy {busy_ms:.3f} ms")
+    print(f"{tag}: stages, each alone: " + "; ".join(parts))
+
+
+def _disparity_bars(tag: str, d: np.ndarray, gt: np.ndarray) -> tuple:
+    """(median abs error over the valid pixels, valid share), held to the
+    bars: at most 0.5 px, at least 0.6."""
+    check(d.shape == gt.shape and bool(np.isfinite(d).all()),
+          f"{tag}: a disparity map shaped {d.shape} or not finite")
+    ok = d > 0
+    err, share = float(np.median(np.abs(d - gt)[ok])), float(ok.mean())
+    check(err <= 0.5, f"{tag}: median abs error {err} px > 0.5")
+    check(share >= 0.6, f"{tag}: valid share {share} < 0.6")
+    return err, share
+
+
+def phase_breadth_disparity(dev) -> None:
+    """``breadth_bm:`` dense SAD block matching and ``breadth_sgm:`` 4-path
+    census SGM on the 640x480 pair, 96 disparities."""
+    from boofcv_tpu_torch.feature import disparity
+    left_np, right_np, gt, _ = scene_pair(0)
+    left = torch.from_numpy(left_np).to(dev)
+    right = torch.from_numpy(right_np).to(dev)
+    h, w = left_np.shape
+    vol = DMAX * h * w * 4            # bytes of one [D, H, W] f32 volume
+    io = 3 * h * w * 4                # two images in, one map out
+
+    cfg = disparity.DisparityConfig(max_disparity=DMAX, radius_x=3,
+                                    radius_y=3, texture_threshold=0.0)
+    # SAD 2 an element, the two prefix-sum passes ~8, selection ~6; the
+    # volume is written or read about 14 times (errors, pad, two prefix
+    # sums and two differences, the two argmins, the re-indexed copy)
+    d, _ = _breadth("breadth_bm", f"block_match {w}x{h} D={DMAX} radius 3",
+                    lambda: disparity.block_match(left, right, cfg), dev,
+                    bound(io, DMAX * h * w * 16.0), bound(14 * vol, 0))
+    err, share = _disparity_bars("breadth_bm", d.cpu().numpy(), gt)
+    cost = disparity.cost_volume(left, right, cfg)
+    _breadth_stages("breadth_bm", (
+        ("cost_volume (shifted differences, then the box filter)",
+         lambda: disparity.cost_volume(left, right, cfg)),
+        ("of it _separable_box",
+         lambda: disparity._separable_box(cost, cfg.radius_y, cfg.radius_x)),
+        ("_wta_select", lambda: disparity._wta_select(cost, cfg))))
+    del cost
+    cpu_ms, dn = _host_ms(lambda: np_block_match(left_np, right_np, DMAX))
+    errn = float(np.median(np.abs(dn - gt)[dn > 0]))
+    print(f"breadth_bm: median abs error {err:.6f} px over the valid pixels "
+          f"(share {share:.6f}; bars 0.5 px and 0.6); numpy BM on the host "
+          f"(a CPU figure): {cpu_ms:.1f} ms, median abs error {errn:.6f} px "
+          f"(bar: within 0.1 px of it)")
+    check(abs(err - errn) <= 0.1, f"breadth_bm: median error {err} px against "
+                                  f"the numpy BM's {errn}")
+
+    scfg = disparity.SgmConfig(max_disparity=DMAX, paths=4, error="census")
+    # census 48 a pixel, Hamming 8 an element, four scans of ~6; the volume
+    # moves about 17 times (cost, the stacked copies and padded states of
+    # two batched scans, the sums, the selection)
+    d, _ = _breadth("breadth_sgm", f"sgm {w}x{h} D={DMAX} 4 paths census",
+                    lambda: disparity.sgm(left, right, scfg), dev,
+                    bound(io, h * w * 48.0 + DMAX * h * w * 32.0),
+                    bound(17 * vol, 0))
+    err, share = _disparity_bars("breadth_sgm", d.cpu().numpy(), gt)
+    bm_cfg = cfg._replace(radius_x=0, radius_y=0, error="census")
+    cost = torch.clamp(disparity.cost_volume(left, right, bm_cfg), max=1e5)
+    agg = [disparity._aggregate(cost, scfg.penalty_small, scfg.penalty_large,
+                                4) for _ in range(2)]
+    same = bool(torch.equal(agg[0], agg[1]))
+    whole = bool((agg[0] == torch.round(agg[0])).all())
+    _breadth_stages("breadth_sgm", (
+        ("cost_volume (census, Hamming)",
+         lambda: disparity.cost_volume(left, right, bm_cfg)),
+        ("_aggregate (two batched scans)", lambda: disparity._aggregate(
+            cost, scfg.penalty_small, scfg.penalty_large, 4)),
+        ("_wta_select", lambda: disparity._wta_select(agg[0], bm_cfg))))
+    del agg, cost
+    cpu_ms, dn = _host_ms(lambda: np_sgm(left_np, right_np, DMAX))
+    errn = float(np.median(np.abs(dn - gt)[dn > 0]))
+    print(f"breadth_sgm: median abs error {err:.6f} px over the valid pixels "
+          f"(share {share:.6f}; bars 0.5 px and 0.6); aggregated volume of "
+          f"two calls bit-equal={same}, all whole numbers={whole}; numpy SGM "
+          f"on the host (a CPU figure, integer winners): {cpu_ms:.1f} ms, "
+          f"median abs error {errn:.6f} px")
+    check(same, "breadth_sgm: two aggregations of one cost volume differ")
+    check(whole, "breadth_sgm: the census aggregation left the integers")
+
+
+def phase_breadth_surf(dev) -> None:
+    """``breadth_surf:`` integral image, two-octave Fast Hessian (500 a
+    octave), Haar orientation and SURF-64 on the 640x480 left image; then
+    the same on the image moved by (4, 6) px."""
+    from boofcv_tpu_torch.feature import associate, describe, fasthessian
+    from boofcv_tpu_torch.ip import integral
+    dy, dx = 4, 6
+    tex = scene_pair(0, extra_rows=2 * dy)[3]
+    h, w = H, W
+    img = torch.from_numpy(tex[dy:dy + h, dx:dx + w].copy()).to(dev)
+    moved = torch.from_numpy(tex[:h, :w].copy()).to(dev)   # content +(dy, dx)
+
+    def detdesc(image):
+        ii = integral.transform(image)
+        det = fasthessian.detect_multi_octave(ii, max_features_per_octave=500,
+                                              num_octaves=2)
+        ang = describe.orientation_average_haar(ii, det.ys, det.xs,
+                                                det.scales)
+        return det, describe.surf(ii, det.ys, det.xs, det.scales, ang)
+
+    n = 1000
+    # eight box-filter sizes of ~60 operations a pixel, nonmax ~30 a pixel
+    # and size; 113 + 400 Haar pairs of ~40 a feature.  The eight response
+    # images are each assembled from ~32 shifted copies of the integral
+    # image
+    flops = 8 * h * w * 90.0 + n * (113 + 400) * 40.0
+    (det, desc), _ = _breadth(
+        "breadth_surf", f"transform + detect_multi_octave(500, 2) + "
+        f"orientation_average_haar + surf {w}x{h}", lambda: detdesc(img), dev,
+        bound(h * w * 4 + n * (64 + 5) * 4, flops),
+        bound(8 * 32 * 3 * h * w * 4, 0))
+    ii = integral.transform(img)
+    ang = describe.orientation_average_haar(ii, det.ys, det.xs, det.scales)
+    _breadth_stages("breadth_surf", (
+        ("transform", lambda: integral.transform(img)),
+        ("detect_multi_octave", lambda: fasthessian.detect_multi_octave(
+            ii, max_features_per_octave=500, num_octaves=2)),
+        ("orientation_average_haar",
+         lambda: describe.orientation_average_haar(ii, det.ys, det.xs,
+                                                   det.scales)),
+        ("surf", lambda: describe.surf(ii, det.ys, det.xs, det.scales,
+                                       ang))))
+    det2, desc2 = detdesc(moved)
+    valid = det.valid.cpu().numpy()
+    norms = torch.linalg.vector_norm(desc, dim=1).cpu().numpy()[valid]
+    check(desc.shape == (n, 64) and bool(torch.isfinite(desc).all()),
+          f"breadth_surf: descriptors shaped {tuple(desc.shape)} or not "
+          "finite")
+    m = associate.associate_mutual(
+        associate.score_euclidean_sq(desc, desc2), det.valid, det2.valid)
+    j = m.dst.long()
+    hit = (m.valid & ((det2.ys[j] - (det.ys + dy)).abs() <= 1.5)
+           & ((det2.xs[j] - (det.xs + dx)).abs() <= 1.5))
+    # a feature can be found again only where the moved image still shows it
+    inside = det.valid & (det.ys + dy < h - 1) & (det.xs + dx < w - 1)
+    n_valid, n_inside = int(valid.sum()), int(inside.sum())
+    n_hit = int((hit & inside).sum())
+    cpu_ms, (fy, _, _) = _host_ms(lambda: np_surf_detdesc(
+        img.cpu().numpy(), max_feats=n))
+    print(f"breadth_surf: {n_valid} valid features of {n} slots (bar 300), "
+          f"descriptor norms within {float(np.abs(norms - 1).max()):.3e} of "
+          f"1 (bar 1e-5); the image moved by ({dy}, {dx}) px: {n_hit} of "
+          f"{n_inside} features that stay inside it are matched again by "
+          f"associate_mutual within 1.5 px of the moved position "
+          f"({n_hit / max(n_inside, 1):.4f}, bar 0.8); numpy SURF on the host "
+          f"(a CPU figure): {cpu_ms:.1f} ms for {len(fy)} features")
+    check(n_valid >= 300, f"breadth_surf: {n_valid} valid features < 300")
+    check(float(np.abs(norms - 1).max()) <= 1e-5,
+          "breadth_surf: a valid descriptor is not of unit norm")
+    check(n_hit >= 0.8 * n_inside, f"breadth_surf: {n_hit} of {n_inside} "
+                                   "features matched again (< 80 %)")
+
+
+def phase_breadth_assoc(dev) -> None:
+    """``breadth_assoc:`` mutual nearest neighbour over 10,000 x 10,000
+    descriptors of 64 floats, through the full score matrix and tiled."""
+    from boofcv_tpu_torch.feature import associate
+    rng = np.random.default_rng(0)
+    n = N_ASSOC
+    base = rng.normal(0, 1, (n, 64)).astype(np.float32)
+    base /= np.linalg.norm(base, axis=1, keepdims=True)
+    other = base + rng.normal(0, 0.05, base.shape).astype(np.float32)
+    a = torch.from_numpy(base).to(dev)
+    b = torch.from_numpy(other).to(dev)
+    io = 2 * n * 64 * 4 + n * 13      # descriptors in; src, dst, score, valid
+    flops = 2.0 * n * n * 64 + 8.0 * n * n
+    # the score matrix is written, rewritten by the expansion and the clamp,
+    # and read by two argmins and a min
+    m, _ = _breadth(
+        "breadth_assoc", f"score_euclidean_sq + associate_mutual {n}x{n}x64",
+        lambda: associate.associate_mutual(
+            associate.score_euclidean_sq(a, b)), dev, bound(io, flops),
+        bound(io + 8 * n * n * 4, 0))
+    scores = associate.score_euclidean_sq(a, b)
+    _breadth_stages("breadth_assoc", (
+        ("score_euclidean_sq",
+         lambda: associate.score_euclidean_sq(a, b)),
+        ("of it the product a @ b.T", lambda: a @ b.T),
+        ("associate_mutual", lambda: associate.associate_mutual(scores))))
+    del scores
+    tile = 2048
+    mt, _ = _breadth(
+        "breadth_assoc", f"associate_mutual_tiled(tile={tile}) {n}x{n}x64",
+        lambda: associate.associate_mutual_tiled(a, b, tile=tile), dev,
+        bound(io, flops), bound(io + 8 * n * n * 4, 0))
+    same = {k: bool(torch.equal(getattr(m, k), getattr(mt, k)))
+            for k in m._fields}
+    n_mutual = int(m.valid.sum())
+    cpu_ms, (fwd, mutual) = _host_ms(lambda: np_associate(base, other))
+    agree = float((m.dst.cpu().numpy() == fwd).mean())
+    print(f"breadth_assoc: {n_mutual}/{n} mutual; numpy on the host (a CPU "
+          f"figure): {cpu_ms:.1f} ms, {int(mutual.sum())}/{n} mutual (bar: "
+          f"within 5), forward matches equal on {agree:.6f} of the rows; "
+          f"tiled against full, field by field: {same}")
+    check(m.dst.shape == (n,) and bool(torch.isfinite(m.score).all()),
+          "breadth_assoc: matches of the wrong shape or not finite")
+    check(abs(n_mutual - int(mutual.sum())) <= 5,
+          f"breadth_assoc: {n_mutual} mutual against numpy's "
+          f"{int(mutual.sum())}")
+    check(all(same.values()), f"breadth_assoc: tiled differs from full: "
+                              f"{same}")
+
+
+def phase_breadth_flow(dev) -> None:
+    """``breadth_flow:`` single-level Horn-Schunck, 200 iterations, on a
+    smooth 640x480 texture moved by (1.5, 2.0) px."""
+    from scipy import ndimage as ndi
+    from boofcv_tpu_torch.feature import flow
+    h, w = H, W
+    rng = np.random.default_rng(0)
+    base = ndi.gaussian_filter(rng.normal(0, 1, (h + 8, w + 8)), 2.5)
+    base = (120 + 60 * base / base.std()).astype(np.float32)
+    dy, dx = 1.5, 2.0
+    i1_np = base[4:4 + h, 4:4 + w].copy()
+    i2_np = ndi.shift(base, (dy, dx), order=1)[4:4 + h, 4:4 + w].astype(
+        np.float32)
+    i1 = torch.from_numpy(i1_np).to(dev)
+    i2 = torch.from_numpy(i2_np).to(dev)
+    # ~22 operations a pixel and iteration; an iteration pads u and v, reads
+    # eight neighbours of each and writes ~20 intermediate fields
+    (u, v), _ = _breadth(
+        "breadth_flow", f"horn_schunck {w}x{h}, {HS_ITERATIONS} iterations",
+        lambda: flow.horn_schunck(i1, i2, alpha=20.0,
+                                  iterations=HS_ITERATIONS), dev,
+        bound(4 * h * w * 4, HS_ITERATIONS * h * w * 22.0),
+        bound(HS_ITERATIONS * 40.0 * h * w * 4, 0))
+    check(u.shape == (h, w) and bool(torch.isfinite(u).all()
+                                     and torch.isfinite(v).all()),
+          "breadth_flow: flow of the wrong shape or not finite")
+    _breadth_stages("breadth_flow", (
+        ("the derivative estimates and no iteration",
+         lambda: flow.horn_schunck(i1, i2, iterations=0)),
+        ("10 iterations more", lambda: flow.horn_schunck(
+            i1, i2, iterations=10, init_flow=(u, v)))))
+    m = HS_INSET
+    c = np.s_[m:-m, m:-m]
+    epe = lambda uu, vv: float(np.hypot(uu[c] - dx, vv[c] - dy).mean())
+    err = epe(u.cpu().numpy(), v.cpu().numpy())
+    cpu_ms, (un, vn) = _host_ms(lambda: np_horn_schunck(
+        i1_np, i2_np, iterations=HS_ITERATIONS))
+    errn = epe(un, vn)
+    print(f"breadth_flow: mean endpoint error {err:.6f} px over the "
+          f"{m}-px-inset crop at ({dx}, {dy}); numpy Horn-Schunck on the "
+          f"host (a CPU figure, float64): {cpu_ms:.1f} ms, {errn:.6f} px "
+          f"(bar: within 0.05 px of it)")
+    check(abs(err - errn) <= 0.05, f"breadth_flow: endpoint error {err} px "
+                                   f"against the numpy solver's {errn}")
+
+
+def phase_breadth_cpu_vs_card(dev) -> None:
+    """Each new module family at the test size on the card against the same
+    call on the CPU: census codes and the SGM aggregation exactly; BM, SURF
+    and Horn-Schunck to the CPU tests' tolerances."""
+    from boofcv_tpu_torch.feature import (associate, describe, disparity,
+                                          fasthessian, flow)
+    from boofcv_tpu_torch.ip import blur, census, integral
+    left_np, right_np, _, _ = scene_pair(1, 64, 96, 16)
+    left_np, right_np = np.round(left_np), np.round(right_np)
+    on = lambda d: (torch.from_numpy(left_np).to(d),
+                    torch.from_numpy(right_np).to(d))
+    both = lambda fn: (fn(*on("cpu")), fn(*on(dev)))
+    out = {}
+
+    c, g = both(lambda l, r: census.dense5x5(l))
+    out["census5x5 equal"] = bool(torch.equal(c, g.cpu()))
+    c, g = both(lambda l, r: blur.gaussian(l, sigma=1.5))
+    out["gaussian blur max |d|"] = float((c - g.cpu()).abs().max())
+    ccfg = disparity.DisparityConfig(max_disparity=16, radius_x=0, radius_y=0,
+                                     error="census")
+    c, g = both(lambda l, r: disparity._aggregate(
+        torch.clamp(disparity.cost_volume(l, r, ccfg), max=1e5), 5.0, 60.0,
+        8))
+    out["sgm 8-path aggregation equal"] = bool(torch.equal(c, g.cpu()))
+    c, g = both(lambda l, r: disparity.sgm(l, r, disparity.SgmConfig(
+        max_disparity=16)))
+    out["sgm map equal"] = bool(torch.equal(c, g.cpu()))
+    c, g = both(lambda l, r: disparity.block_match(
+        l, r, disparity.DisparityConfig(max_disparity=16)))
+    g = g.cpu()
+    ok = (c >= 0) & (g >= 0)
+    out["bm valid masks agree"] = float(((c >= 0) == (g >= 0)).float().mean())
+    out["bm within 0.05 px"] = float(((c - g).abs()[ok] <= 0.05).float()
+                                     .mean())
+
+    def surf(l, r):
+        ii = integral.transform(l)
+        det = fasthessian.detect_multi_octave(ii, 40, 2)
+        ang = describe.orientation_average_haar(ii, det.ys, det.xs,
+                                                det.scales)
+        return det, describe.surf(ii, det.ys, det.xs, det.scales, ang)
+    (cd, cs), (gd, gs) = both(surf)
+    key = lambda det: torch.stack([det.ys, det.xs, det.scales], 1)[
+        det.valid].cpu()
+    ck, gk = key(cd), key(gd)
+    out["surf features cpu, card"] = (len(ck), len(gk))
+    near = torch.cdist(gk, ck).argmin(1)
+    out["surf keypoints max |d|"] = float((gk - ck[near]).abs().max())
+    out["surf descriptors max |d|"] = float(
+        (gs[gd.valid].cpu() - cs[cd.valid][near]).abs().max())
+    m = associate.associate_mutual(associate.score_euclidean_sq(cs, cs))
+    mg = associate.associate_mutual(associate.score_euclidean_sq(
+        cs.to(dev), cs.to(dev)))
+    out["associate dst equal"] = bool(torch.equal(m.dst, mg.dst.cpu()))
+    (cu, cv), (gu, gv) = both(lambda l, r: flow.horn_schunck(
+        l, torch.roll(l, (1, 2), (0, 1)), iterations=20))
+    out["horn_schunck max |d| px"] = max(float((cu - gu.cpu()).abs().max()),
+                                         float((cv - gv.cpu()).abs().max()))
+    print("breadth_cpu_vs_card: " + " ".join(f"{k}={v}" for k, v in
+                                            out.items()))
+    check(out["census5x5 equal"] and out["sgm 8-path aggregation equal"]
+          and out["sgm map equal"] and out["associate dst equal"],
+          "breadth_cpu_vs_card: an integer-valued result differs")
+    check(out["gaussian blur max |d|"] <= 1e-3, "breadth_cpu_vs_card: blur")
+    check(out["bm valid masks agree"] >= 0.99
+          and out["bm within 0.05 px"] >= 0.99, "breadth_cpu_vs_card: BM")
+    check(len(ck) == len(gk) and out["surf keypoints max |d|"] <= 1e-3
+          and out["surf descriptors max |d|"] <= 1e-4,
+          "breadth_cpu_vs_card: SURF")
+    check(out["horn_schunck max |d| px"] <= 1e-4,
+          "breadth_cpu_vs_card: Horn-Schunck")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1640,6 +2331,11 @@ def main() -> int:
         phase_ba_stages(dev)
         launches["VO with window BA"] = phase_ba_vo(dev, poses, frames)
         phase_ba_scale(dev)
+        phase_breadth_disparity(dev)
+        phase_breadth_surf(dev)
+        phase_breadth_assoc(dev)
+        phase_breadth_flow(dev)
+        phase_breadth_cpu_vs_card(dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

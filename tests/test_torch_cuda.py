@@ -419,3 +419,144 @@ def test_window_ba_on_card(cuda):
     assert all(np.isfinite(R).all() and np.isfinite(t).all()
                for R, t in refined)
     assert float(info["final_cost"]) <= float(info["initial_cost"])
+
+
+# ---- the dense-image breadth modules: the card against the CPU ------------
+
+def _int_pair(seed, h=64, w=96, dmax=16):
+    """Integer-valued stereo pair of a smooth texture, true disparity 3 to
+    dmax - 2 growing with the row."""
+    rng = np.random.default_rng(seed)
+    tex = rng.normal(0, 1, (h, w + dmax + 8))
+    k = np.hanning(5) / np.hanning(5).sum()
+    tex = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), 1, tex)
+    tex = np.apply_along_axis(lambda c: np.convolve(c, k, "same"), 0, tex)
+    tex = np.round(128 + 60 * tex / tex.std()).astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w]
+    disp = 3 + (dmax - 5) * yy // h
+    return torch.from_numpy(tex[:, :w].copy()), torch.from_numpy(
+        tex[yy, xx + disp].copy())
+
+
+def _on_both(cuda, fn, *tensors):
+    """fn on the CPU tensors and on their copies on the card (result moved
+    back)."""
+    to_cpu = lambda o: (o.cpu() if isinstance(o, torch.Tensor)
+                        else type(o)(*(to_cpu(x) for x in o))
+                        if hasattr(o, "_fields")
+                        else tuple(to_cpu(x) for x in o))
+    return fn(*tensors), to_cpu(fn(*(t.to(cuda) for t in tensors)))
+
+
+def test_breadth_integer_paths_equal_the_cpu(cuda):
+    """Census codes, Hamming costs with bit 31 in play, packed BRIEF words,
+    the first-minimum rule of argmin and the census SGM aggregation (4 and
+    8 paths) are the same integers on the card as on the CPU."""
+    from boofcv_tpu_torch.feature import associate, describe, disparity
+    from boofcv_tpu_torch.ip import census
+    left, right = _int_pair(0)
+    c, g = _on_both(cuda, census.dense5x5, left)
+    assert torch.equal(c, g)
+    rng = np.random.default_rng(1)
+    words = torch.from_numpy(rng.integers(
+        -2**31, 2**31, (2, 80, 4), dtype=np.int64).astype(np.int32))
+    words[0, 0], words[0, 1], words[1, 0], words[1, 1] = 0, -1, -1, -2**31
+    c, g = _on_both(cuda, associate.score_hamming, words[0], words[1])
+    assert torch.equal(c, g) and c[0, 0] == 128
+    c, g = _on_both(cuda, census.hamming_distance, words[0], words[1])
+    assert torch.equal(c, g)
+    definition = describe.brief_definition(64, 6, seed=3, device="cpu")
+    ys = torch.from_numpy(rng.uniform(0, 63, 100).astype(np.float32))
+    xs = torch.from_numpy(rng.uniform(0, 95, 100).astype(np.float32))
+    c = describe.brief(left, ys, xs, definition)
+    g = describe.brief(left.to(cuda), ys.to(cuda), xs.to(cuda),
+                       describe.BriefDefinition(*(t.to(cuda)
+                                                  for t in definition)))
+    assert torch.equal(c, g.cpu()) and bool((c < 0).any())
+    ties = torch.from_numpy(rng.integers(0, 3, (12, 30, 40)).astype(
+        np.float32))
+    ties[3] = ties[7] = 0.0
+    c, g = _on_both(cuda, lambda t: torch.argmin(t, dim=0), ties)
+    assert torch.equal(c, g)
+    assert torch.equal(g, torch.from_numpy(np.argmin(ties.numpy(), axis=0)))
+    cfg = disparity.DisparityConfig(max_disparity=16, radius_x=0, radius_y=0,
+                                    error="census")
+    for paths in (4, 8):
+        c, g = _on_both(cuda, lambda l, r: disparity._aggregate(
+            torch.clamp(disparity.cost_volume(l, r, cfg), max=1e5), 5.0,
+            60.0, paths), left, right)
+        assert torch.equal(c, g)
+    c, g = _on_both(cuda, lambda l, r: disparity.sgm(
+        l, r, disparity.SgmConfig(max_disparity=16)), left, right)
+    assert torch.equal(c, g)
+
+
+def test_breadth_float_paths_match_the_cpu(cuda):
+    """BM (the prefix sums add in another order on the card: valid masks on
+    99 %, 0.05 px on 99 %), blur 1e-6 relative, SURF detections as sets and
+    descriptors to 1e-4, association indices exact, Horn-Schunck after 20
+    iterations to 1e-4 px."""
+    from boofcv_tpu_torch.feature import (associate, describe, disparity,
+                                          fasthessian, flow)
+    from boofcv_tpu_torch.ip import blur, integral
+    left, right = _int_pair(2)
+    c, g = _on_both(cuda, lambda l, r: disparity.block_match(
+        l, r, disparity.DisparityConfig(max_disparity=16)), left, right)
+    assert float(((c >= 0) == (g >= 0)).float().mean()) >= 0.99
+    ok = (c >= 0) & (g >= 0)
+    assert float(((c - g).abs()[ok] <= 0.05).float().mean()) >= 0.99
+    c, g = _on_both(cuda, lambda l: blur.gaussian(l, sigma=1.5), left)
+    assert float((c - g).abs().max()) <= 1e-6 * float(c.abs().max())
+
+    def surf(img):
+        ii = integral.transform(img)
+        det = fasthessian.detect_multi_octave(ii, 40, 2)
+        ang = describe.orientation_average_haar(ii, det.ys, det.xs,
+                                                det.scales)
+        return det, describe.surf(ii, det.ys, det.xs, det.scales, ang)
+    (cd, cs), (gd, gs) = _on_both(cuda, surf, left)
+    key = lambda det: torch.stack([det.ys, det.xs, det.scales], 1)[det.valid]
+    ck, gk = key(cd), key(gd)
+    assert ck.shape == gk.shape and len(ck) >= 20
+    near = torch.cdist(gk, ck).argmin(1)
+    assert float((gk - ck[near]).abs().max()) <= 1e-3
+    assert float((gs[gd.valid] - cs[cd.valid][near]).abs().max()) <= 1e-4
+    a, b = cs[cd.valid], cs[cd.valid].flip(0) + 0.01
+    c, g = _on_both(cuda, lambda x, y: associate.associate_mutual(
+        associate.score_euclidean_sq(x, y)), a, b)
+    assert torch.equal(c.dst, g.dst) and torch.equal(c.valid, g.valid)
+    c, g = _on_both(cuda, lambda x, y: associate.associate_mutual_tiled(
+        x, y, tile=16), a, b)
+    assert torch.equal(c.dst, g.dst) and torch.equal(c.valid, g.valid)
+    (cu, cv), (gu, gv) = _on_both(cuda, lambda i1, i2: flow.horn_schunck(
+        i1, i2, iterations=20), left, torch.roll(left, (1, 2), (0, 1)))
+    assert float((cu - gu).abs().max()) <= 1e-4
+    assert float((cv - gv).abs().max()) <= 1e-4
+
+
+def test_breadth_makes_no_host_sync(cuda):
+    """block_match, sgm, the SURF chain, association and Horn-Schunck make
+    no synchronizing call (an error under the debug mode)."""
+    from boofcv_tpu_torch.feature import (associate, describe, disparity,
+                                          fasthessian, flow)
+    from boofcv_tpu_torch.ip import integral
+    left, right = (t.to(cuda) for t in _int_pair(3))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        disparity.block_match(left, right,
+                              disparity.DisparityConfig(max_disparity=16))
+        disparity.sgm(left, right, disparity.SgmConfig(max_disparity=16,
+                                                       paths=8))
+        ii = integral.transform(left)
+        det = fasthessian.detect_multi_octave(ii, 40, 2)
+        ang = describe.orientation_average_haar(ii, det.ys, det.xs,
+                                                det.scales)
+        desc = describe.surf(ii, det.ys, det.xs, det.scales, ang)
+        associate.associate_mutual(associate.score_euclidean_sq(desc, desc),
+                                   det.valid, det.valid)
+        associate.associate_mutual_tiled(desc, desc, tile=32)
+        flow.horn_schunck(left, right, iterations=3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
