@@ -38,3 +38,12 @@ def resolve_device(device=None) -> torch.device:
             "boofcv_tpu_torch runs on the card unless the caller passes a "
             "device, e.g. device='cpu'")
     return torch.device("cuda")
+
+
+def as_tensor(x, dtype=None, device=None) -> torch.Tensor:
+    """``x`` as a tensor of ``dtype``: a tensor stays on its device unless
+    ``device`` names another; anything else (numpy, lists) goes to
+    :func:`resolve_device` (``device``)."""
+    if isinstance(x, torch.Tensor) and device is None:
+        return x.to(dtype) if dtype is not None else x
+    return torch.as_tensor(x, dtype=dtype, device=resolve_device(device))

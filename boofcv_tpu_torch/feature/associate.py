@@ -18,6 +18,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from boofcv_tpu_torch._config import resolve_device
+
 INF = float("inf")
 
 
@@ -211,18 +213,20 @@ def associate_three_by_pairs(desc1: torch.Tensor, desc2: torch.Tensor,
 
 
 def associate_nearest_neighbor_kdtree(desc_a, desc_b, max_error: float = INF,
-                                      mutual: bool = True,
-                                      eps: float = 0.0) -> Matches:
+                                      mutual: bool = True, eps: float = 0.0,
+                                      device=None) -> Matches:
     """Host-side (approximate) KD-tree association
     (AssociateNearestNeighbor.java API parity), backed by scipy's cKDTree.
 
     The descriptors are copied to the host and the matches returned on
-    ``desc_a``'s device; association at scale on the card is
-    :func:`associate_mutual_tiled`.  ``eps`` > 0 allows approximate
-    neighbours.  Scores are squared Euclidean, as on the matrix paths."""
+    ``desc_a``'s device, or for numpy descriptors on ``device`` (default the
+    card); association at scale on the card is :func:`associate_mutual_tiled`.
+    ``eps`` > 0 allows approximate neighbours.  Scores are squared
+    Euclidean, as on the matrix paths."""
     from scipy.spatial import cKDTree
 
-    dev = desc_a.device if isinstance(desc_a, torch.Tensor) else "cpu"
+    dev = (desc_a.device if isinstance(desc_a, torch.Tensor)
+           else resolve_device(device))
     host = lambda x: (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
                       else np.asarray(x)).astype(np.float64)
     a, b = host(desc_a), host(desc_b)

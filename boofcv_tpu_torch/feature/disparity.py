@@ -17,13 +17,14 @@ scanline recurrence is a Python loop over the scan axis on [2, D, H] state:
 the two directions of one axis advance together.
 
 Sparse path.  One SAD replaces the reference's ``sad`` / ``sad_xla`` split
-(both score identically).  The right strip and the left patch are read
-through the window-gather kernel with ``2*ry+1`` rows starting at
-``ys - ry``: the kernel's row clamp reproduces the reference's per-row clip,
-and its column clamp reads edge pixels that are then masked, so each
-out-of-image column adds 1e6 per element as in the reference.  One stream
-([h, w] images, [N] locations) or B streams ([B, h, w], [B, N]): two
-launches of the kernel either way.
+(both score identically), and ``ssd`` scores squared differences.  Both
+read the right strip and the left patch through the window-gather kernel
+with ``2*ry+1`` rows starting at ``ys - ry``: the kernel's row clamp
+reproduces the reference's per-row clip, and its column clamp reads edge
+pixels that are then masked.  SAD adds 1e6 per out-of-image element as the
+reference's SAD does; SSD scores a window that leaves the image 1e18 as the
+reference's SSD does.  One stream ([h, w] images, [N] locations) or B
+streams ([B, h, w], [B, N]): two launches of the kernel either way.
 """
 
 from __future__ import annotations
@@ -41,8 +42,9 @@ INVALID = -1.0
 
 class DisparityConfig(NamedTuple):
     """ConfigDisparityBM analog.  The dense matchers read every field; the
-    sparse matcher reads all but ``validate_lr`` and ``error`` (it has no
-    right-image volume to check against, and one SAD)."""
+    sparse matcher reads all but ``validate_lr`` (it has no right-image
+    volume to check against), and takes ``error`` "sad" (or the
+    reference's "sad_xla", the same SAD) or "ssd"."""
     min_disparity: int = 0
     max_disparity: int = 64       # exclusive of min: range = max - min
     radius_x: int = 3
@@ -202,8 +204,10 @@ def block_match_best5(left: torch.Tensor, right: torch.Tensor,
     return _absolute(_wta_select(five, cfg5), cfg.min_disparity)
 
 
-def _sparse_costs_sad(left, right, ys, xs, cfg: DisparityConfig):
-    """[..., N, D] SAD cost table; cost index d scores disparity min + d."""
+def _sparse_windows(left, right, ys, xs, cfg: DisparityConfig):
+    """The two gathers both sparse costs score from: (left patches
+    [..., N, PH, P], right windows [..., N, PH, D, P], their in-image column
+    mask [..., N, D, P]); window d is the one disparity min + d compares."""
     w = left.shape[-1]
     rx, ry = cfg.radius_x, cfg.radius_y
     n_disp = cfg.max_disparity - cfg.min_disparity
@@ -222,30 +226,58 @@ def _sparse_costs_sad(left, right, ys, xs, cfg: DisparityConfig):
     # window for disparity index d starts at strip column n_disp - 1 - d
     sl = strip.unfold(-1, p, 1).flip(-2)                # [N, PH, D, P]
     inb = colb.unfold(-1, p, 1).flip(-2)                # [N, D, P]
+    return patch_l, sl, inb
+
+
+def _sparse_costs_sad(left, right, ys, xs, cfg: DisparityConfig):
+    """[..., N, D] SAD cost table; cost index d scores disparity min + d."""
+    patch_l, sl, inb = _sparse_windows(left, right, ys, xs, cfg)
     e = torch.abs(patch_l[..., None, :] - sl).transpose(-3, -2)
     e = torch.where(inb[..., None, :], e, 1e6)          # [N, D, PH, P]
     return torch.sum(e, dim=(-2, -1))
 
 
+def _sparse_costs_ssd(left, right, ys, xs, cfg: DisparityConfig):
+    """[..., N, D] SSD cost table from the same two gathers: the sum of
+    squared differences, 1e18 where the right window leaves the image.  The
+    reference expands it as |L|^2 + |R|^2 - 2<L, R> (a grouped convolution);
+    summing the squares directly agrees to float32 rounding and needs no
+    TF32-capable convolution."""
+    patch_l, sl, inb = _sparse_windows(left, right, ys, xs, cfg)
+    e = (patch_l[..., None, :] - sl).transpose(-3, -2)  # [N, D, PH, P]
+    ssd = torch.sum(e * e, dim=(-2, -1))
+    return torch.where(torch.all(inb, dim=-1), ssd, 1e18)
+
+
 def sparse_block_match(left: torch.Tensor, right: torch.Tensor,
                        ys: torch.Tensor, xs: torch.Tensor,
                        cfg: DisparityConfig = DisparityConfig()):
-    """Sparse SAD block matching at N integer left-image locations.
+    """Sparse block matching at N integer left-image locations
+    (DisparitySparseScoreSadRect): ``cfg.error`` "sad" or "sad_xla" scores
+    SAD, "ssd" SSD with the per-pixel-error bound squared; any other value
+    raises ``ValueError``.
 
     Returns (disp [..., N] f32, valid [..., N] bool): winner-take-all with
     the per-pixel-error bound, the texture check and the subpixel parabola
     of the reference."""
+    score = {"sad": _sparse_costs_sad, "sad_xla": _sparse_costs_sad,
+             "ssd": _sparse_costs_ssd}.get(cfg.error)
+    if score is None:
+        raise ValueError(f"sparse_block_match scores error 'sad', 'sad_xla' "
+                         f"or 'ssd', not {cfg.error!r}")
     left = as_planes(left)
     right = as_planes(right)
     n_disp = cfg.max_disparity - cfg.min_disparity
-    costs = _sparse_costs_sad(left, right, ys, xs, cfg)
+    costs = score(left, right, ys, xs, cfg)
     at = lambda d: torch.gather(costs, -1, d[..., None])[..., 0]
     best = torch.argmin(costs, dim=-1)
     cbest = at(best)
     valid = (xs - (cfg.min_disparity + best) >= 0) & (cbest < 1e17)
     if cfg.max_per_pixel_error > 0:
         area = (2 * cfg.radius_x + 1) * (2 * cfg.radius_y + 1)
-        valid &= cbest <= cfg.max_per_pixel_error * area
+        # SSD costs are squared per-pixel errors: the bound is squared too
+        per_pixel = cfg.max_per_pixel_error ** (2 if cfg.error == "ssd" else 1)
+        valid &= cbest <= per_pixel * area
     if cfg.texture_threshold > 0:
         d_idx = torch.arange(n_disp, device=costs.device)
         near = torch.abs(d_idx - best[..., None]) <= 1

@@ -1,6 +1,6 @@
 """Non-maximum suppression + N-best selection (port of
 ``boofcv_tpu/feature/extract.py``: ``Detections``, ``nonmax_mask``,
-``select_n_best``, ``detect``).
+``select_n_best``, ``detect``, ``subpixel_quadratic``).
 
 Reference analog: NonMaxBlock.java (strict), SelectNBestFeatures.java.
 ``torch.topk`` orders ties differently from ``lax.top_k``, so the two
@@ -75,3 +75,22 @@ def detect(intensity: torch.Tensor, max_features: int, radius: int = 2,
     """intensity -> nonmax -> top-k (GeneralFeatureDetector.process:107)."""
     mask = nonmax_mask(intensity, radius, threshold, border)
     return select_n_best(intensity, mask, max_features)
+
+
+def subpixel_quadratic(intensity: torch.Tensor, det: Detections) -> tuple:
+    """Quadratic peak interpolation around each detection, separately in x
+    and y (the reference's polynomial subpixel step for SURF and SIFT).
+    Detections are clamped one pixel inside an [H, W] image and the offsets
+    to +-0.5.  Returns float32 (ys, xs)."""
+    h, w = intensity.shape
+    yc = torch.clamp(det.ys.long(), 1, h - 2)
+    xc = torch.clamp(det.xs.long(), 1, w - 2)
+    at = lambda dy, dx: intensity[yc + dy, xc + dx]
+    c, l, r, u, d = at(0, 0), at(0, -1), at(0, 1), at(-1, 0), at(1, 0)
+    dx_ = (r - l) * 0.5
+    dy_ = (d - u) * 0.5
+    dxx = r - 2 * c + l
+    dyy = d - 2 * c + u
+    ox = torch.where(dxx != 0, -dx_ / dxx, 0.0).clamp(-0.5, 0.5)
+    oy = torch.where(dyy != 0, -dy_ / dyy, 0.0).clamp(-0.5, 0.5)
+    return (yc + oy).to(torch.float32), (xc + ox).to(torch.float32)

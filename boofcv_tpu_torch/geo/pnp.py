@@ -1,11 +1,11 @@
 """Perspective-n-Point pose estimation (port of ``boofcv_tpu/geo/pnp.py``:
-``rigid_from_three_points``, ``p3p_grunert``, ``reprojection_error_sq``,
-``_gn_pose_loop``, ``gauss_newton_pose``).
+``rigid_from_three_points``, ``p3p_grunert``, ``p3p_finsterwalder``,
+``reprojection_error_sq``, ``_gn_pose_loop``, ``gauss_newton_pose``).
 
-Reference analog: boofcv-geo alg/geo/pose/P3PGrunert.java and the
-nonlinear refiner (PnPJacobianRodrigues.java).  P3P is batched over
-hypotheses; the refine is Gauss-Newton on se(3) with the analytic
-reprojection Jacobian.
+Reference analog: boofcv-geo alg/geo/pose/P3PGrunert.java,
+P3PFinsterwalder.java and the nonlinear refiner
+(PnPJacobianRodrigues.java).  P3P is batched over hypotheses; the refine is
+Gauss-Newton on se(3) with the analytic reprojection Jacobian.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from boofcv_tpu_torch.geo import se3
-from boofcv_tpu_torch.geo.smalllinalg import quartic_roots
+from boofcv_tpu_torch.geo.smalllinalg import cubic_roots, det3, quartic_roots
 
 
 def rigid_from_three_points(world: torch.Tensor, cam: torch.Tensor):
@@ -105,6 +105,151 @@ def p3p_grunert(world: torch.Tensor, obs: torch.Tensor,
     cam = torch.stack([cam1, cam2, cam3], dim=-2)     # [..., 4, 3pts, 3]
     worldr = world[..., None, :, :].expand(cam.shape)
     R, t = rigid_from_three_points(worldr.to(dtype), cam.to(dtype))
+    return R.to(dtype), t.to(dtype), ok
+
+
+def _sym3(m00, m01, m02, m11, m12, m22):
+    return torch.stack([torch.stack([m00, m01, m02], -1),
+                        torch.stack([m01, m11, m12], -1),
+                        torch.stack([m02, m12, m22], -1)], -2)
+
+
+def _column(M, i):
+    """Column i [...] of M [..., 3, 3]."""
+    return torch.take_along_dim(M, i[..., None, None].expand(
+        i.shape + (3, 1)), dim=-1)[..., 0]
+
+
+def p3p_finsterwalder(world: torch.Tensor, obs: torch.Tensor,
+                      dtype=torch.float64):
+    """Finsterwalder's P3P (P3PFinsterwalder.java), batched; the interface
+    of :func:`p3p_grunert`.
+
+    With u = s2/s1, v = s3/s1 the two side-ratio constraints are conics in
+    (u, v); a root lambda of a cubic makes their pencil degenerate, it
+    splits into two lines, and each line meets the second conic in two
+    points.  As in the reference, the cubic's three-root branch promotes
+    the rest of a float32 solve to float64, and the final rigid alignment
+    runs in float32 whatever ``dtype`` is."""
+    world = world.to(dtype)
+    obs = obs.to(dtype)
+    f = torch.cat([obs, torch.ones_like(obs[..., :1])], dim=-1)
+    f = f / torch.linalg.norm(f, dim=-1, keepdim=True)
+    f1, f2, f3 = f[..., 0, :], f[..., 1, :], f[..., 2, :]
+    P1, P2, P3 = world[..., 0, :], world[..., 1, :], world[..., 2, :]
+    a2 = torch.sum((P2 - P3) ** 2, -1)
+    b2 = torch.sum((P1 - P3) ** 2, -1)
+    c2 = torch.sum((P1 - P2) ** 2, -1)
+    ca = torch.sum(f2 * f3, -1)
+    cb = torch.sum(f1 * f3, -1)
+    cg = torch.sum(f1 * f2, -1)
+    z = torch.zeros_like(a2)
+
+    # conic (i):  -b^2 u^2 + 2 b^2 ca uv + (a^2-b^2) v^2 - 2 a^2 cb v + a^2
+    Q1 = _sym3(-b2, b2 * ca, z, a2 - b2, -a2 * cb, a2)
+    # conic (ii): (a^2-c^2) u^2 + 2 c^2 ca uv - c^2 v^2 - 2 a^2 cg u + a^2
+    Q2 = _sym3(a2 - c2, c2 * ca, -a2 * cg, -c2, z, a2)
+
+    # det(Q1 + lam Q2) = 0, a cubic in lam interpolated at lam = 0, +-1, inf
+    d0 = det3(Q1)
+    d3 = det3(Q2)
+    dp = det3(Q1 + Q2)
+    dm = det3(Q1 - Q2)
+    c1 = (dp - dm) / 2.0 - d3
+    c2_ = (dp + dm) / 2.0 - d0
+    lam, real = cubic_roots(d3, c2_, c1, d0)           # [..., 3]
+    # the first real root (any root of the cubic works in theory)
+    first = torch.argmax(real.to(torch.uint8), dim=-1, keepdim=True)
+    lam0 = torch.take_along_dim(torch.where(real, lam, float("nan")), first,
+                                dim=-1)[..., 0]
+    Q = Q1 + lam0[..., None, None] * Q2
+
+    # split the degenerate conic Q (rank 2) into two lines: adj(Q) = -p pᵀ
+    # with p the lines' intersection; D = Q + [p]x has rank-1 rows and
+    # columns proportional to the two lines
+    def cof(i, j, k, l):
+        return Q[..., i, j] * Q[..., k, l] - Q[..., i, l] * Q[..., k, j]
+
+    B = _sym3(cof(1, 1, 2, 2), cof(1, 2, 2, 0), cof(1, 0, 2, 1),
+              cof(0, 0, 2, 2), cof(0, 1, 2, 0), cof(0, 0, 1, 1))
+    diag = -torch.stack([B[..., 0, 0], B[..., 1, 1], B[..., 2, 2]], -1)
+    i_best = torch.argmax(diag, dim=-1)
+    di = torch.take_along_dim(diag, i_best[..., None], dim=-1)[..., 0]
+    di = torch.sqrt(torch.clamp(di, min=1e-30))
+    p = _column(B, i_best) / di[..., None]
+    px, py, pz = p[..., 0], p[..., 1], p[..., 2]
+    zp = torch.zeros_like(px)
+    Px = torch.stack([torch.stack([zp, -pz, py], -1),
+                      torch.stack([pz, zp, -px], -1),
+                      torch.stack([-py, px, zp], -1)], -2)
+    D = Q + Px
+    # the row of largest norm is line l, the column of largest norm line m
+    ri = torch.argmax(torch.sum(D * D, -1), -1)
+    l_line = _column(D.transpose(-1, -2), ri)
+    ci = torch.argmax(torch.sum(D * D, -2), -1)
+    m_line = _column(D, ci)
+
+    def line_conic(line):
+        """Conic (ii) on the line lu u + lv v + lw = 0, parameterized by
+        the coordinate with the larger coefficient: two (u, v) [..., 2, 2]
+        and their flags [..., 2]."""
+        lu, lv, lw = line[..., 0], line[..., 1], line[..., 2]
+        use_u = torch.abs(lu) >= torch.abs(lv)
+        A = Q2[..., 0, 0]
+        Bq = 2 * Q2[..., 0, 1]
+        Cq = Q2[..., 1, 1]
+        Dq = 2 * Q2[..., 0, 2]
+        Eq = 2 * Q2[..., 1, 2]
+        Fq = Q2[..., 2, 2]
+        lus = torch.where(torch.abs(lu) < 1e-30, 1e-30, lu)
+        lvs = torch.where(torch.abs(lv) < 1e-30, 1e-30, lv)
+        # u = al_u v + be_u
+        al_u = -lv / lus
+        be_u = -lw / lus
+        qa_u = A * al_u ** 2 + Bq * al_u + Cq
+        qb_u = 2 * A * al_u * be_u + Bq * be_u + Dq * al_u + Eq
+        qc_u = A * be_u ** 2 + Dq * be_u + Fq
+        # v = al_v u + be_v
+        al_v = -lu / lvs
+        be_v = -lw / lvs
+        qa_v = Cq * al_v ** 2 + Bq * al_v + A
+        qb_v = 2 * Cq * al_v * be_v + Bq * be_v + Eq * al_v + Dq
+        qc_v = Cq * be_v ** 2 + Eq * be_v + Fq
+        qa = torch.where(use_u, qa_u, qa_v)
+        qb = torch.where(use_u, qb_u, qb_v)
+        qc = torch.where(use_u, qc_u, qc_v)
+        disc = qb * qb - 4 * qa * qc
+        ok = (disc >= 0) & (torch.abs(qa) > 1e-30)
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        qas = torch.where(torch.abs(qa) < 1e-30, 1e-30, qa)
+        outs = []
+        for r in ((-qb + sq) / (2 * qas), (-qb - sq) / (2 * qas)):
+            uu = torch.where(use_u, al_u * r + be_u, r)
+            vv = torch.where(use_u, r, al_v * r + be_v)
+            outs.append(torch.stack([uu, vv], -1))
+        return torch.stack(outs, -2), torch.stack([ok, ok], -1)
+
+    uv_l, ok_l = line_conic(l_line)
+    uv_m, ok_m = line_conic(m_line)
+    uv = torch.cat([uv_l, uv_m], dim=-2)                # [..., 4, 2]
+    okq = torch.cat([ok_l, ok_m], dim=-1)               # [..., 4]
+
+    u = uv[..., 0]
+    v = uv[..., 1]
+    den1 = 1.0 + u * u - 2.0 * u * cg[..., None]
+    den1 = torch.where(torch.abs(den1) < 1e-30, 1e-30, den1)
+    s1 = torch.sqrt(torch.clamp(c2[..., None] / den1, min=0.0))
+    s2 = u * s1
+    s3 = v * s1
+    ok = (okq & (s1 > 0) & (s2 > 0) & (s3 > 0) & torch.isfinite(u)
+          & torch.isfinite(v))
+
+    cam = torch.stack([s1[..., None] * f1[..., None, :],
+                       s2[..., None] * f2[..., None, :],
+                       s3[..., None] * f3[..., None, :]], dim=-2)
+    worldr = world[..., None, :, :].expand(cam.shape)
+    R, t = rigid_from_three_points(worldr.to(torch.float32),
+                                   cam.to(torch.float32))
     return R.to(dtype), t.to(dtype), ok
 
 

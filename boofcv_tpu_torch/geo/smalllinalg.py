@@ -1,10 +1,20 @@
 """Closed-form small-matrix algebra and polynomial roots (port of
-``boofcv_tpu/geo/smalllinalg.py``: ``det3``, ``inv3``, ``_cbrt``,
-``cubic_roots``, ``quartic_roots``).
+``boofcv_tpu/geo/smalllinalg.py``, whole).
 
 Branchless ``torch.where`` throughout, so a batch of K systems is one
 sequence of elementwise kernels.  The ``1e-300`` guards are kept as they
 are: in float32 they round to 0 exactly as in the reference.
+
+``solve_spd`` and ``inv_spd`` work on the symmetric part ``(A + A^T)/2``:
+``jnp.linalg.eigh`` symmetrizes its input by default, while PyTorch's
+factorizations read one triangle.  ``solve_spd`` factors it with
+``cholesky_ex``, which keeps the factorization's status on the device (no
+host sync, where ``torch.linalg.eigh`` checks its status on the host); the
+reference solves through ``eigh``, and for a positive definite A the two
+agree to rounding.  A matrix that is not positive definite gives NaN here.
+``inv_spd`` keeps the reference's ``eigh``.  ``poly_roots`` keeps the
+reference's (re, im) pairs and its order of operations; each of its 120
+iterations is about a hundred small launches (no host sync).
 """
 
 from __future__ import annotations
@@ -12,6 +22,20 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+def det2(A: torch.Tensor) -> torch.Tensor:
+    return A[..., 0, 0] * A[..., 1, 1] - A[..., 0, 1] * A[..., 1, 0]
+
+
+def inv2(A: torch.Tensor) -> torch.Tensor:
+    d = det2(A)
+    ds = torch.where(torch.abs(d) < 1e-300, 1e-300, d)
+    out = torch.stack([
+        torch.stack([A[..., 1, 1], -A[..., 0, 1]], dim=-1),
+        torch.stack([-A[..., 1, 0], A[..., 0, 0]], dim=-1),
+    ], dim=-2)
+    return out / ds[..., None, None]
 
 
 def det3(A: torch.Tensor) -> torch.Tensor:
@@ -45,6 +69,29 @@ def inv3(A: torch.Tensor) -> torch.Tensor:
         torch.stack([C02, C12, C22], dim=-1),
     ], dim=-2)
     return adjT / ds[..., None, None]
+
+
+def solve33(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] @ x = [..., 3] via the adjugate inverse."""
+    return (inv3(A) @ b[..., None])[..., 0]
+
+
+def _eigh_sym(A: torch.Tensor):
+    return torch.linalg.eigh(0.5 * (A + A.transpose(-1, -2)))
+
+
+def solve_spd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """SPD solve by the Cholesky factor of A's symmetric part, NaN where
+    the factorization fails.  A: [..., N, N], b: [..., N]."""
+    L, info = torch.linalg.cholesky_ex(0.5 * (A + A.transpose(-1, -2)))
+    L = torch.where((info == 0)[..., None, None], L, float("nan"))
+    return torch.cholesky_solve(b[..., None], L)[..., 0]
+
+
+def inv_spd(A: torch.Tensor) -> torch.Tensor:
+    w, Q = _eigh_sym(A)
+    ws = torch.where(torch.abs(w) < 1e-300, 1e-300, w)
+    return torch.einsum("...ik,...k,...jk->...ij", Q, 1.0 / ws, Q)
 
 
 def _cbrt(x: torch.Tensor) -> torch.Tensor:
@@ -123,3 +170,41 @@ def quartic_roots(c4, c3, c2, c1, c0):
     roots = torch.stack([y1, y2, y3, y4], dim=-1) + shift[..., None]
     real = torch.stack([ok12, ok12, ok34, ok34], dim=-1)
     return roots, real
+
+
+def poly_roots(coeffs: torch.Tensor, iters: int = 120):
+    """Batched all-roots of a real-coefficient polynomial (Durand-Kerner),
+    as the reference computes them: float64 (re, im) pairs, a Cauchy-bound
+    start circle with angles offset by 0.4, ``iters`` fixed iterations.
+
+    coeffs: [..., D+1] highest degree first.  Returns (re [..., D],
+    im [..., D]); the caller decides which roots are real.  Degenerate
+    leading coefficients give garbage roots: guard upstream."""
+    c = coeffs.to(torch.float64)
+    lead = c[..., :1]
+    c = c / torch.where(torch.abs(lead) < 1e-300, 1e-300, lead)
+    D = c.shape[-1] - 1
+    r = 1.0 + torch.amax(torch.abs(c[..., 1:]), dim=-1)
+    k = torch.arange(D, dtype=torch.float64, device=c.device)
+    ang = 2.0 * math.pi * k / D + 0.4
+    zr = r[..., None] * torch.cos(ang)
+    zi = r[..., None] * torch.sin(ang)
+    off_diag = ~torch.eye(D, dtype=torch.bool, device=c.device)
+    for _ in range(iters):
+        pr = c[..., 0:1].expand(zr.shape)
+        pi = torch.zeros_like(zr)
+        for i in range(1, D + 1):
+            pr, pi = pr * zr - pi * zi + c[..., i:i + 1], pr * zi + pi * zr
+        # prod_{j != i} (z_i - z_j), multiplied in the order j = 0 .. D-1
+        dr = torch.where(off_diag, zr[..., :, None] - zr[..., None, :], 1.0)
+        di = torch.where(off_diag, zi[..., :, None] - zi[..., None, :], 0.0)
+        qr = torch.ones_like(zr)
+        qi = torch.zeros_like(zr)
+        for j in range(D):
+            drj, dij = dr[..., j], di[..., j]
+            qr, qi = qr * drj - qi * dij, qr * dij + qi * drj
+        den = qr * qr + qi * qi
+        den = torch.where(den < 1e-300, 1e-300, den)
+        zr, zi = (zr - (pr * qr + pi * qi) / den,
+                  zi - (pi * qr - pr * qi) / den)
+    return zr, zi

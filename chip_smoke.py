@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths (stereo VO, bundle adjustment, the
-dense-image breadth path) once on one CUDA card.
+breadth surface) once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -78,9 +78,24 @@ Phases, each printed on its own line(s); any failure exits non-zero:
     over 10,000 x 10,000 x 64 descriptors, full matrix and tiled (the
     numpy count within 5; tiled equal to full); ``breadth_flow:``
     Horn-Schunck, 200 iterations (endpoint error within 0.05 px of a numpy
-    solver's); ``breadth_cpu_vs_card:`` each new module family on the card
+    solver's); ``breadth_canny:`` Canny, low 2, high 8, on a smoothed
+    640x480 texture (the hysteresis trips and syncs, the host chain
+    finisher, the mask against a numpy Canny on 99.9 % of the pixels);
+    ``breadth_sift:`` SIFT detect + describe, 200 an octave, 4 octaves (unit
+    descriptors after the 0.2 clip; at least 60 % of the keypoints found
+    again within 1.5 px after a (4, 6) px move); ``breadth_flow2:`` Brox
+    warping, dense KLT and block flow on the flow scene (endpoint error
+    bars from the CPU results at 120x160); ``breadth_zhang99:``
+    ``calibrate_mono_planar`` on 12 views of an 8x6 grid, 20 iterations (fx,
+    fy, cx, cy within 0.1 % of a numpy Zhang99); ``geo_robust:`` RANSAC for
+    F, E (Nister) and H over 1,000 correspondences, 30 % outliers, 512
+    hypotheses (at least 95 % of the true inliers kept, at most 1 % of the
+    outliers); ``breadth_cpu_vs_card:`` each module family on the card
     against the same call on the CPU at the test size.  These phases launch
-    neither hand kernel: the reference's modules reach no TPU kernel.
+    neither hand kernel: the reference's modules reach no TPU kernel;
+14. ``sparse_ssd:`` the sparse matcher scoring SSD at the main path's shape
+    (512 points, 96 disparities): ``window_gather`` launches twice, its
+    costs equal the CPU's (the plain gather) to 1e-5.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -156,7 +171,7 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _trace(run, attempts: int = 5):
+def _trace(run, attempts: int = 5, cpu: bool = True):
     """(the CUDA events of ``run()`` under the profiler, the profiler).
 
     On this kind of host the profiler loses the first device events of a
@@ -170,13 +185,16 @@ def _trace(run, attempts: int = 5):
     waiting, then ``PROFILER_PADS`` more, then ``run()``.  What is lost is
     padding: while one pad is seen, everything after the pads was seen.  A
     trace that shows no pad is taken again with four times the wait and the
-    pads.  The pads are left out of the events returned."""
+    pads.  The pads are left out of the events returned.  ``cpu=False``
+    traces the device alone (no operator events: a call of 10^5 launches
+    costs half the time to trace)."""
     from boofcv_tpu_torch.kernels import window_gather as wg
     lead, pads = PROFILER_LEAD_S, PROFILER_PADS
     for attempt in range(attempts):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
+                                                if cpu else [])
+        with profile(activities=activities) as prof:
             wg.launch_pads(8, "cuda")           # the current device
             torch.cuda.synchronize()
             time.sleep(lead)
@@ -1317,10 +1335,12 @@ def np_lm_schur_baseline(Rs, ts, pts, obs_xy, obs_view, obs_valid, fixed,
     return time.perf_counter() - t_start, c0
 
 
-def _solve_ms(fn, reps: int = 5) -> list:
-    """ms of each of ``reps`` calls of ``fn`` after one warm-up: CUDA events
-    around the whole call, from its first launch to its last kernel's end."""
-    fn()
+def _solve_ms(fn, reps: int = 5, warm_up: bool = True) -> list:
+    """ms of each of ``reps`` calls of ``fn`` after one warm-up (unless the
+    caller has just made one): CUDA events around the whole call, from its
+    first launch to its last kernel's end."""
+    if warm_up:
+        fn()
     out = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -1334,9 +1354,9 @@ def _solve_ms(fn, reps: int = 5) -> list:
     return out
 
 
-def _profile_call(fn) -> tuple:
+def _profile_call(fn, cpu: bool = True) -> tuple:
     """(kernels launched, device busy ms, profiler) of one ``fn()``."""
-    kernels, prof = _trace(fn)
+    kernels, prof = _trace(fn, cpu=cpu)
     return len(kernels), sum(e.device_time for e in kernels) / 1e3, prof
 
 
@@ -1932,24 +1952,31 @@ def _host_ms(fn) -> tuple:
     return 1e3 * (time.perf_counter() - t0), out
 
 
-def _breadth(tag: str, what: str, fn, dev, bnd: dict, traffic: dict) -> tuple:
+def _breadth(tag: str, what: str, fn, dev, bnd: dict, traffic: dict,
+             allow_syncs: bool = False, long_call: bool = False) -> tuple:
     """Run ``fn`` on the card as a breadth phase measures it and print the
     phase's line: host syncs and peak memory of one call, ms per call (CUDA
-    events around the whole call, 5 after a warm-up), kernels, device busy
-    ms and idle share of one profiled call, the function's bound (inputs
-    read once, outputs written once, its operations) and the least time for
-    the bytes this formulation moves.  Returns (fn's result, median ms).
-    A host sync inside ``fn`` fails the run."""
+    events around the whole call, 5 after a warm-up), kernels, device
+    busy ms and idle share of one profiled call, the function's bound
+    (inputs read once, outputs written once, its operations) and the least
+    time for the bytes this formulation moves.  Returns (fn's result,
+    median ms).  A host sync inside ``fn`` fails the run unless
+    ``allow_syncs`` (a function whose reference reads the device in a loop
+    condition, or factors on the host's word).  ``long_call`` (a call of
+    seconds and 10^5 launches): 3 timed calls, the sync count's call is the
+    warm-up and the profiler traces the device alone."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     out, syncs = _count_sync_warnings(fn)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev) / 2**20
-    ms = _solve_ms(fn)
-    n_kernels, busy_ms, _ = _profile_call(fn)
+    reps = 3 if long_call else 5
+    ms = _solve_ms(fn, reps, warm_up=not long_call)
+    n_kernels, busy_ms, _ = _profile_call(fn, cpu=not long_call)
     med = float(np.median(ms))
-    print(f"{tag}: {what}: ms per call (CUDA events around the whole call, 5 "
-          f"after a warm-up)={[round(m, 3) for m in ms]} median={med:.3f}; "
+    print(f"{tag}: {what}: ms per call (CUDA events around the whole call, "
+          f"{reps} after a warm-up)={[round(m, 3) for m in ms]} "
+          f"median={med:.3f}; "
           f"one profiled call launches {n_kernels} kernels, device busy "
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / med:.4f} of the "
           f"median call; host syncs={sum(syncs.values())} "
@@ -1958,7 +1985,8 @@ def _breadth(tag: str, what: str, fn, dev, bnd: dict, traffic: dict) -> tuple:
           f"{bnd['bytes']} B)={bnd['bound_ms']:.6f} ms by {bnd['bound_by']}; "
           f"the {traffic['bytes']} B this formulation moves take at least "
           f"{traffic['bound_ms']:.6f} ms")
-    check(sum(syncs.values()) == 0, f"{tag}: host syncs: {dict(syncs)}")
+    check(allow_syncs or sum(syncs.values()) == 0,
+          f"{tag}: host syncs: {dict(syncs)}")
     check(n_kernels > 0, f"{tag}: nothing ran on the device")
     return out, med
 
@@ -2235,9 +2263,11 @@ def phase_breadth_flow(dev) -> None:
 
 
 def phase_breadth_cpu_vs_card(dev) -> None:
-    """Each new module family at the test size on the card against the same
-    call on the CPU: census codes and the SGM aggregation exactly; BM, SURF
-    and Horn-Schunck to the CPU tests' tolerances."""
+    """Each breadth module family at the test size on the card against the
+    same call on the CPU: census codes, the SGM aggregation and Canny's mask
+    exactly; BM, SURF, SIFT, the four flows and the sparse SSD costs to the
+    CPU tests' tolerances (block flow's interior, where no sentinel is in a
+    window)."""
     from boofcv_tpu_torch.feature import (associate, describe, disparity,
                                           fasthessian, flow)
     from boofcv_tpu_torch.ip import blur, census, integral
@@ -2292,6 +2322,42 @@ def phase_breadth_cpu_vs_card(dev) -> None:
         l, torch.roll(l, (1, 2), (0, 1)), iterations=20))
     out["horn_schunck max |d| px"] = max(float((cu - gu.cpu()).abs().max()),
                                          float((cv - gv.cpu()).abs().max()))
+
+    # the rest of the breadth surface
+    from boofcv_tpu_torch.feature import canny, sift
+    c, g = both(lambda l, r: canny.canny(l, 2.0, 8.0))
+    out["canny mask equal"] = bool(torch.equal(c, g.cpu()))
+    (ck, cd), (gk, gd) = both(lambda l, r: sift.detect_describe(
+        l, max_features=60, num_octaves=2))
+    key = lambda k: torch.stack([k.ys, k.xs], 1)[k.valid].cpu().double()
+    a, b = key(ck), key(gk)
+    out["sift keypoints cpu, card"] = (len(a), len(b))
+    near = torch.cdist(b, a).argmin(1)
+    out["sift keypoints max |d|"] = float((b - a[near]).abs().max())
+    same = ((gd[gk.valid].cpu() - cd[ck.valid][near]).abs().amax(1)
+            <= 1e-4)
+    out["sift descriptors within 1e-4"] = float(same.float().mean())
+    moved = lambda l: torch.roll(l, (1, 2), (0, 1))
+    flows = {"brox_warping": lambda l, r: flow.brox_warping(
+                 l, moved(l), scales=(1, 2), outer_iterations=2,
+                 inner_iterations=10),
+             "dense_klt": lambda l, r: flow.dense_klt(l, moved(l),
+                                                      scales=(1, 2)),
+             "block_flow": lambda l, r: flow.block_flow(l, moved(l))}
+    inner = np.s_[7:-7, 7:-7]
+    for name, fn in flows.items():
+        c, g = both(fn)
+        d = torch.maximum((c[0] - g[0].cpu()).abs(), (c[1] - g[1].cpu()).abs())
+        out[f"{name} share within 1e-4 px"] = float(
+            (d[inner] <= 1e-4).float().mean())
+    ys = torch.from_numpy(np.random.default_rng(2).integers(0, 64, 100))
+    xs = torch.from_numpy(np.random.default_rng(3).integers(0, 96, 100))
+    scfg = disparity.DisparityConfig(max_disparity=16, error="ssd")
+    c, g = both(lambda l, r: disparity._sparse_costs_ssd(
+        l, r, ys.to(l.device), xs.to(l.device), scfg))
+    far = c >= 1e17
+    out["sparse ssd costs max relative |d|"] = float(
+        ((c - g.cpu()).abs() / c.clamp(min=1.0))[~far].max())
     print("breadth_cpu_vs_card: " + " ".join(f"{k}={v}" for k, v in
                                             out.items()))
     check(out["census5x5 equal"] and out["sgm 8-path aggregation equal"]
@@ -2305,6 +2371,553 @@ def phase_breadth_cpu_vs_card(dev) -> None:
           "breadth_cpu_vs_card: SURF")
     check(out["horn_schunck max |d| px"] <= 1e-4,
           "breadth_cpu_vs_card: Horn-Schunck")
+    check(out["canny mask equal"], "breadth_cpu_vs_card: Canny")
+    check(out["sift keypoints cpu, card"][0] == out[
+        "sift keypoints cpu, card"][1] and out["sift keypoints max |d|"]
+          <= 1e-3 and out["sift descriptors within 1e-4"] >= 0.9,
+          "breadth_cpu_vs_card: SIFT")
+    check(all(out[f"{k} share within 1e-4 px"] >= 0.999 for k in flows),
+          "breadth_cpu_vs_card: the dense flows")
+    check(out["sparse ssd costs max relative |d|"] <= 1e-5,
+          "breadth_cpu_vs_card: sparse SSD")
+
+
+# ---------------------------------------------------------------------------
+# the rest of the breadth surface: Canny, SIFT, the other dense flows,
+# Zhang99, robust F/E/H, each at the reference breadth benchmark's size
+# ---------------------------------------------------------------------------
+
+CANNY_LOW, CANNY_HIGH = 2.0, 8.0
+SIFT_FEATURES, SIFT_OCTAVES = 200, 4
+N_ROBUST, ROBUST_OUTLIERS, ROBUST_HYPOTHESES = 1000, 0.3, 512
+# endpoint-error bars of the three flows at 640x480 (px over the 40-px
+# inset): each function's result on the CPU on ``flow_scene(120, 160)``
+# (brox 0.168261, dense KLT 0.217964, block flow 0.602648; at 240x320
+# 0.052032, 0.227012, 0.567523), rounded up by about a quarter
+FLOW_BARS = {"brox_warping": 0.25, "dense_klt": 0.3, "block_flow": 0.75}
+
+
+def canny_scene(h=None, w=None):
+    """The breadth benchmark's Canny image: smoothed Gaussian noise, sigma
+    3, scaled to 120 +- 60 (``bench_breadth.bench_canny``, seed 0)."""
+    from scipy import ndimage as ndi
+    h, w = h or H, w or W
+    base = ndi.gaussian_filter(np.random.default_rng(0).normal(0, 1, (h, w)),
+                               3.0)
+    return (120 + 60 * base / base.std()).astype(np.float32)
+
+
+def np_canny(img, low, high, radius=2):
+    """numpy Canny on the host, float64: the breadth benchmark's
+    ``_np_canny`` held to the function it is compared with, which it
+    misses twice: its Sobel carries a factor 0.25 (so its thresholds act 4x
+    higher) and its blur replicates edges where ``canny``'s Gaussian is
+    renormalized over the image.  Here: Gaussian of sigma (2r+1)/6
+    renormalized at the borders, Sobel with edge replication, 4-sector
+    non-maximum suppression, hysteresis as connected components holding a
+    strong pixel."""
+    from scipy import ndimage as ndi
+    sigma = (2 * radius + 1) / 6.0
+    x = np.arange(-radius, radius + 1)
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    k /= k.sum()
+    b = img.astype(np.float64)
+    for axis in (1, 0):
+        num = ndi.correlate1d(b, k, axis=axis, mode="constant")
+        den = ndi.correlate1d(np.ones_like(b), k, axis=axis, mode="constant")
+        b = num / den
+    kx = np.array([[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]], np.float64)
+    dx = ndi.correlate(b, kx, mode="nearest")
+    dy = ndi.correlate(b, kx.T, mode="nearest")
+    inten = np.hypot(dx, dy)
+    theta = np.arctan2(dy, dx)
+    theta = np.where(theta < 0, theta + np.pi, theta)
+    sector = (np.floor((theta + np.pi / 8) / (np.pi / 4)).astype(int)) % 4
+
+    def shift(a, dyy, dxx):
+        p = np.pad(a, 1)
+        return p[1 + dyy:1 + dyy + a.shape[0], 1 + dxx:1 + dxx + a.shape[1]]
+
+    pairs = [((0, -1), (0, 1)), ((-1, -1), (1, 1)),
+             ((-1, 0), (1, 0)), ((-1, 1), (1, -1))]
+    keep = np.zeros(img.shape, bool)
+    for s, (a, c) in enumerate(pairs):
+        keep |= (sector == s) & (inten > shift(inten, *a)) & (
+            inten >= shift(inten, *c))
+    nms = np.where(keep, inten, 0.0)
+    lab, nlab = ndi.label(nms >= low, structure=np.ones((3, 3), bool))
+    good = np.zeros(nlab + 1, bool)
+    good[np.unique(lab[nms >= high])] = True
+    good[0] = False
+    return good[lab]
+
+
+def phase_breadth_canny(dev) -> None:
+    """``breadth_canny:`` Canny (blur, Sobel, NMS, hysteresis) on the
+    640x480 image, the hysteresis trips and syncs, and the host chain
+    finisher."""
+    from boofcv_tpu_torch.feature import canny
+    img_np = canny_scene()
+    img = torch.from_numpy(img_np).to(dev)
+    h, w = img_np.shape
+    nms = canny._nms(img, -1.0, 2)
+    (mask, trips), syncs = _count_sync_warnings(
+        lambda: canny._hysteresis(nms, CANNY_LOW, CANNY_HIGH))
+    sweeps = canny.HYSTERESIS_SWEEPS * trips + 1
+    # blur 20, Sobel 12, norm and direction 25, NMS 12 an element; a sweep
+    # is a 3x3 max and a product (10)
+    flops = h * w * (20 + 12 + 25 + 12 + 10.0 * sweeps)
+    out, _ = _breadth(
+        "breadth_canny", f"canny {w}x{h} low {CANNY_LOW} high {CANNY_HIGH}",
+        lambda: canny.canny(img, CANNY_LOW, CANNY_HIGH), dev,
+        bound(h * w * 5, flops),
+        bound(h * w * 4 * (30 + 3 * sweeps), 0), allow_syncs=True)
+    check(torch.equal(out, mask), "breadth_canny: canny() differs from its "
+                                  "own stages")
+    _breadth_stages("breadth_canny", (
+        ("blur, Sobel, direction, NMS", lambda: canny._nms(img, -1.0, 2)),
+        ("hysteresis", lambda: canny._hysteresis(nms, CANNY_LOW,
+                                                 CANNY_HIGH))))
+    mask_np = mask.cpu().numpy() > 0
+    host_ms, chains = _host_ms(lambda: canny.edge_contours(mask_np))
+    cpu_ms, ref = _host_ms(lambda: np_canny(img_np, CANNY_LOW, CANNY_HIGH))
+    agree = float((mask_np == ref).mean())
+    print(f"breadth_canny: hysteresis {trips} trips of "
+          f"{canny.HYSTERESIS_SWEEPS} sweeps, {sum(syncs.values())} host "
+          f"syncs {dict(sorted(syncs.items()))}; {int(mask_np.sum())} edge px; "
+          f"edge_contours on the host {host_ms:.1f} ms, {len(chains)} chains; "
+          f"numpy Canny on the host (a CPU figure, float64) {cpu_ms:.1f} ms, "
+          f"{int(ref.sum())} edge px, pixels agreeing {agree:.6f} (bar "
+          f"0.999)")
+    check(sum(syncs.values()) == trips + 1,
+          f"breadth_canny: {sum(syncs.values())} syncs for {trips} trips")
+    # the benchmark's thresholds keep every NMS pixel (all are above 8 on
+    # the unscaled Sobel); thresholds on the intensity's own scale make the
+    # fixpoint loop work
+    (_, trips_wide), syncs_wide = _count_sync_warnings(
+        lambda: canny._hysteresis(nms, 10 * CANNY_LOW, 10 * CANNY_HIGH))
+    print(f"breadth_canny: at low {10 * CANNY_LOW} high {10 * CANNY_HIGH}: "
+          f"{trips_wide} trips, {sum(syncs_wide.values())} host syncs")
+    check(sum(len(c) for c in chains) == int(mask_np.sum()),
+          "breadth_canny: the chains do not cover the mask")
+    check(agree >= 0.999, f"breadth_canny: {agree} of the pixels agree with "
+                          "the numpy Canny")
+
+
+def phase_breadth_sift(dev) -> None:
+    """``breadth_sift:`` SIFT detect + describe (200 an octave, 4 octaves)
+    on the 640x480 left image of the stereo scene and on it moved by (4, 6)
+    px."""
+    from boofcv_tpu_torch.core.kernel import gaussian_radius_for_sigma
+    from boofcv_tpu_torch.feature import associate, sift
+    dy, dx = 4, 6
+    tex = scene_pair(0, extra_rows=2 * dy)[3]
+    h, w = H, W
+    img = torch.from_numpy(tex[dy:dy + h, dx:dx + w].copy()).to(dev)
+    moved = torch.from_numpy(tex[:h, :w].copy()).to(dev)  # content +(dy, dx)
+    n = SIFT_FEATURES * SIFT_OCTAVES
+    run = lambda image: sift.detect_describe(
+        image, max_features=SIFT_FEATURES, num_octaves=SIFT_OCTAVES)
+    # 6 Gaussian levels of ~2x9 taps (2 operations each) and the DoG
+    # extrema (~60) an element over the 4/3 of the image all octaves hold;
+    # 289 + 256 samples of ~40 operations a keypoint
+    flops = 4 / 3 * h * w * (6 * 36 + 60.0) + n * (289 + 256) * 40.0
+    (kp, desc), _ = _breadth(
+        "breadth_sift", f"detect_describe {w}x{h} max_features "
+        f"{SIFT_FEATURES} num_octaves {SIFT_OCTAVES}", lambda: run(img), dev,
+        bound(h * w * 4 + n * (5 * 4 + 128 * 4), flops),
+        bound(4 / 3 * h * w * 4 * 6 * 40, 0))
+    base = img
+    stack, sigmas = sift.gaussian_scale_stack(base)
+    incs = [sigmas[0]] + [float(np.sqrt(max(b * b - a * a, 1e-6)))
+                          for a, b in zip(sigmas[:-1], sigmas[1:])]
+    stack_taps = [2 * gaussian_radius_for_sigma(s) + 1 for s in incs]
+    kp0 = sift._detect_from_stack(stack, sigmas, SIFT_FEATURES, 1.0, 10.0, 8)
+    ang0 = sift.orientation_histogram(stack[0], kp0.ys, kp0.xs, kp0.sigmas)
+    _breadth_stages("breadth_sift", (
+        ("gaussian_scale_stack octave 0", lambda: sift.gaussian_scale_stack(
+            base)),
+        ("_detect_from_stack octave 0", lambda: sift._detect_from_stack(
+            stack, sigmas, SIFT_FEATURES, 1.0, 10.0, 8)),
+        ("orientation_histogram octave 0", lambda: sift.orientation_histogram(
+            stack[0], kp0.ys, kp0.xs, kp0.sigmas)),
+        ("describe octave 0", lambda: sift.describe(
+            stack[0], kp0.ys, kp0.xs, kp0.sigmas, ang0))))
+    kp2, desc2 = run(moved)
+    valid = kp.valid.cpu().numpy()
+    norms = torch.linalg.vector_norm(desc, dim=1).cpu().numpy()[valid]
+    check(desc.shape == (n, 128) and bool(torch.isfinite(desc).all()),
+          f"breadth_sift: descriptors shaped {tuple(desc.shape)} or not "
+          "finite")
+    pos = lambda k: torch.stack([k.ys, k.xs], 1).double()
+    p1, p2 = pos(kp), pos(kp2)
+    target = p1 + torch.tensor([dy, dx], dtype=torch.float64, device=dev)
+    d = torch.cdist(target, p2[kp2.valid])
+    again = (d.amin(1) <= 1.5) if d.shape[1] else torch.zeros_like(kp.valid)
+    inside = (kp.valid & (target[:, 0] < h - 1 - 8)
+              & (target[:, 1] < w - 1 - 8))
+    n_inside = int(inside.sum())
+    n_again = int((again & inside).sum())
+    m = associate.associate_mutual(associate.score_euclidean_sq(desc, desc2),
+                                   kp.valid, kp2.valid)
+    j = m.dst.long()
+    matched = m.valid & ((p2[j] - target).abs().amax(1) <= 1.5) & inside
+    print(f"breadth_sift: {int(valid.sum())} valid keypoints of {n} slots; "
+          f"descriptor norms within {float(np.abs(norms - 1).max()):.3e} of 1 "
+          f"after the 0.2 clip (bar 1e-5); the image moved by ({dy}, {dx}) "
+          f"px: {n_again} of {n_inside} keypoints that stay inside are "
+          f"detected again within 1.5 px ({n_again / max(n_inside, 1):.4f}, "
+          f"bar 0.6), {int(matched.sum())} of them also matched by "
+          f"associate_mutual; the Gaussian stack of an octave blurs with "
+          f"{stack_taps} taps (two launches a tap a pass in "
+          f"ip/convolve._conv2d_valid)")
+    check(int(valid.sum()) >= 100, "breadth_sift: fewer than 100 keypoints")
+    check(float(np.abs(norms - 1).max()) <= 1e-5,
+          "breadth_sift: a valid descriptor is not of unit norm")
+    check(n_again >= 0.6 * n_inside, f"breadth_sift: {n_again} of "
+                                     f"{n_inside} keypoints found again")
+
+
+def flow_scene(h=None, w=None, dy=1.5, dx=2.0):
+    """The breadth benchmark's flow pair: smoothed noise (sigma 2.5, 120 +-
+    60, seed 0) and the same moved by (dy, dx) px (linear interpolation)."""
+    from scipy import ndimage as ndi
+    h, w = h or H, w or W
+    base = ndi.gaussian_filter(
+        np.random.default_rng(0).normal(0, 1, (h + 8, w + 8)), 2.5)
+    base = (120 + 60 * base / base.std()).astype(np.float32)
+    i1 = base[4:4 + h, 4:4 + w].copy()
+    i2 = ndi.shift(base, (dy, dx), order=1)[4:4 + h, 4:4 + w].astype(
+        np.float32)
+    return i1, i2
+
+
+def phase_breadth_flow2(dev) -> None:
+    """``breadth_flow2:`` Brox warping, dense KLT and block flow on the
+    640x480 flow scene moved by (1.5, 2.0) px, each with its endpoint error
+    over the 40-px inset."""
+    from boofcv_tpu_torch.feature import flow
+    h, w = H, W
+    dy, dx = 1.5, 2.0
+    i1_np, i2_np = flow_scene(h, w, dy, dx)
+    i1 = torch.from_numpy(i1_np).to(dev)
+    i2 = torch.from_numpy(i2_np).to(dev)
+    c = np.s_[HS_INSET:-HS_INSET, HS_INSET:-HS_INSET]
+    px = 4 / 3 * h * w                       # pixels over the pyramid
+    runs = (
+        ("brox_warping", "brox_warping scales (1, 2, 4, 8), 5 outer x 50 "
+         "inner", lambda: flow.brox_warping(i1, i2), 250 * 150.0 * px, True),
+        ("dense_klt", "dense_klt radius 3 scales (1, 2, 4), 10 iterations",
+         lambda: flow.dense_klt(i1, i2), 10 * 60.0 * px, False),
+        ("block_flow", "block_flow search 4 region 3",
+         lambda: flow.block_flow(i1, i2), 81 * 14.0 * h * w, False))
+    for name, what, fn, flops, long_call in runs:
+        out, _ = _breadth("breadth_flow2", f"{what} {w}x{h}", fn, dev,
+                          bound(h * w * 4 * 5, flops),
+                          bound(flops / 2 * 4, 0), long_call=long_call)
+        u, v = (t.cpu().numpy() for t in out[:2])
+        check(u.shape == (h, w) and bool(np.isfinite(u).all()
+                                         and np.isfinite(v).all()),
+              f"breadth_flow2: {name} of the wrong shape or not finite")
+        epe = float(np.hypot(u[c] - dx, v[c] - dy).mean())
+        print(f"breadth_flow2: {name} mean endpoint error {epe:.6f} px over "
+              f"the {HS_INSET}-px inset at ({dx}, {dy}) (bar "
+              f"{FLOW_BARS[name]}, from its CPU result at 120x160)")
+        check(epe <= FLOW_BARS[name], f"breadth_flow2: {name} endpoint error "
+                                      f"{epe} > {FLOW_BARS[name]}")
+
+
+def zhang_scene(n_views=12, nx=8, ny=6, noise=0.3, seed=0):
+    """The breadth benchmark's calibration scene (``_zhang_scene``): an 8x6
+    grid of 3 cm squares seen by 12 views of a Brown camera (fx 520, fy
+    515, k1 -0.25, k2 0.08), 0.3 px noise."""
+    rng = np.random.default_rng(seed)
+    world = np.stack(np.meshgrid(np.arange(nx) * 0.03,
+                                 np.arange(ny) * 0.03), -1).reshape(-1, 2)
+    Kc = np.array([[520.0, 0, 320.0], [0, 515.0, 240.0], [0, 0, 1.0]])
+    k1, k2 = -0.25, 0.08
+    obs = []
+    for _ in range(n_views):
+        wv = rng.uniform(-0.5, 0.5, 3)
+        wv[2] = rng.uniform(-0.3, 0.3)
+        th = np.linalg.norm(wv)
+        kx = np.array([[0, -wv[2], wv[1]], [wv[2], 0, -wv[0]],
+                       [-wv[1], wv[0], 0]]) / max(th, 1e-12)
+        R = np.eye(3) + np.sin(th) * kx + (1 - np.cos(th)) * kx @ kx
+        t = np.array([rng.uniform(-0.1, 0.1), rng.uniform(-0.08, 0.08),
+                      rng.uniform(0.5, 0.9)])
+        Xc = np.c_[world, np.zeros(len(world))] @ R.T + t
+        xn = Xc[:, :2] / Xc[:, 2:]
+        r2 = (xn ** 2).sum(1)
+        xd = xn * (1 + k1 * r2 + k2 * r2 * r2)[:, None]
+        px = xd @ Kc[:2, :2].T + Kc[:2, 2]
+        obs.append(px + rng.normal(0, noise, px.shape))
+    return world, np.stack(obs), Kc
+
+
+def np_zhang99(world, obs, iterations=20):
+    """The breadth benchmark's numpy Zhang99 (``_np_zhang99``): per-view DLT
+    homographies, linear K, extrinsics, then damped GN with
+    forward-difference Jacobians.  Returns (params, rmse).  One line
+    differs: the skew column of J is zeroed before the solve.  The
+    benchmark's copy solves with skew free and then zeroes its step, a step
+    the normal equations did not choose; it stalls 0.3 % in fx from the
+    minimum (rmse 0.401802 px at 20, 40 and 80 iterations against 0.401778
+    here and in ``calibrate_mono_planar``)."""
+    V, N, _ = obs.shape
+
+    def homography(src, dst):
+        A = []
+        for (x, y), (u, v) in zip(src, dst):
+            A.append([x, y, 1, 0, 0, 0, -u * x, -u * y, -u])
+            A.append([0, 0, 0, x, y, 1, -v * x, -v * y, -v])
+        _, _, vt = np.linalg.svd(np.asarray(A))
+        Hm = vt[-1].reshape(3, 3)
+        return Hm / Hm[2, 2]
+
+    Hs = np.stack([homography(world, obs[v]) for v in range(V)])
+
+    def vij(Hv, i, j):
+        return np.array([
+            Hv[0, i] * Hv[0, j],
+            Hv[0, i] * Hv[1, j] + Hv[1, i] * Hv[0, j],
+            Hv[1, i] * Hv[1, j],
+            Hv[2, i] * Hv[0, j] + Hv[0, i] * Hv[2, j],
+            Hv[2, i] * Hv[1, j] + Hv[1, i] * Hv[2, j],
+            Hv[2, i] * Hv[2, j]])
+
+    Vm = []
+    for v in range(V):
+        Vm.append(vij(Hs[v], 0, 1))
+        Vm.append(vij(Hs[v], 0, 0) - vij(Hs[v], 1, 1))
+    _, _, vt = np.linalg.svd(np.asarray(Vm))
+    b11, b12, b22, b13, b23, b33 = vt[-1]
+    cy = (b12 * b13 - b11 * b23) / (b11 * b22 - b12 * b12)
+    lam = b33 - (b13 * b13 + cy * (b12 * b13 - b11 * b23)) / b11
+    fx = np.sqrt(abs(lam / b11))
+    fy = np.sqrt(abs(lam * b11 / (b11 * b22 - b12 * b12)))
+    cx = -b13 * fx * fx / lam
+    Kl = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+
+    Kinv = np.linalg.inv(Kl)
+    params = [fx, fy, 0.0, cx, cy, 0.0, 0.0]
+    for v in range(V):
+        h1, h2, h3 = (Kinv @ Hs[v]).T
+        s = 1.0 / np.linalg.norm(h1)
+        r1, r2 = s * h1, s * h2
+        r3 = np.cross(r1, r2)
+        R = np.stack([r1, r2, r3], 1)
+        u, _, vtv = np.linalg.svd(R)
+        R = u @ vtv
+        t = s * h3
+        ang = np.arccos(np.clip((np.trace(R) - 1) / 2, -1, 1))
+        if ang < 1e-9:
+            wv = np.zeros(3)
+        else:
+            wv = ang / (2 * np.sin(ang)) * np.array(
+                [R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+        params.extend(list(wv) + list(t))
+    p = np.asarray(params)
+    w3 = np.c_[world, np.zeros(len(world))]
+
+    def residual(p):
+        fx, fy, sk, cx, cy, k1, k2 = p[:7]
+        out = np.empty((V, N, 2))
+        for v in range(V):
+            wv = p[7 + 6 * v:10 + 6 * v]
+            t = p[10 + 6 * v:13 + 6 * v]
+            th = np.linalg.norm(wv)
+            if th < 1e-12:
+                R = np.eye(3)
+            else:
+                kx = np.array([[0, -wv[2], wv[1]], [wv[2], 0, -wv[0]],
+                               [-wv[1], wv[0], 0]]) / th
+                R = np.eye(3) + np.sin(th) * kx + (1 - np.cos(th)) * kx @ kx
+            Xc = w3 @ R.T + t
+            xn = Xc[:, :2] / Xc[:, 2:]
+            r2 = (xn ** 2).sum(1)
+            d = 1 + k1 * r2 + k2 * r2 * r2
+            xd = xn * d[:, None]
+            out[v, :, 0] = fx * xd[:, 0] + sk * xd[:, 1] + cx
+            out[v, :, 1] = fy * xd[:, 1] + cy
+        return (out - obs).ravel()
+
+    lam = 1e-3
+    r = residual(p)
+    c0 = r @ r
+    n_par = len(p)
+    for _ in range(iterations):
+        J = np.empty((len(r), n_par))
+        for i in range(n_par):
+            dp = np.zeros(n_par)
+            dp[i] = 1e-6 * max(1.0, abs(p[i]))
+            J[:, i] = (residual(p + dp) - r) / dp[i]
+        J[:, 2] = 0.0                       # zero skew
+        Hm = J.T @ J
+        g = J.T @ r
+        try:
+            step = np.linalg.solve(Hm + lam * np.eye(n_par), -g)
+        except np.linalg.LinAlgError:
+            lam *= 10
+            continue
+        step[2] = 0.0                       # zero skew
+        p_new = p + step
+        r_new = residual(p_new)
+        c1 = r_new @ r_new
+        if np.isfinite(c1) and c1 < c0:
+            p, r, c0 = p_new, r_new, c1
+            lam = max(lam * 0.3, 1e-10)
+        else:
+            lam = min(lam * 10, 1e6)
+    return p, np.sqrt(c0 / (V * N))
+
+
+def phase_breadth_zhang99(dev) -> None:
+    """``breadth_zhang99:`` ``calibrate_mono_planar(iterations=20)`` on the
+    12-view scene against the numpy Zhang99 on the host."""
+    from boofcv_tpu_torch.calib import zhang99
+    world, obs, K_gt = zhang_scene()
+    V, N = obs.shape[:2]
+    # per iteration: projection and Jacobians (~300 operations a corner),
+    # the normal blocks (13 x 13 products a corner), the Schur reduction
+    flops = 20 * V * N * (300 + 2 * 13 * 13.0)
+    res, _ = _breadth(
+        "breadth_zhang99", f"calibrate_mono_planar {V} views x {N} corners, "
+        f"20 iterations (the closed form on the host)",
+        lambda: zhang99.calibrate_mono_planar(world, obs, iterations=20,
+                                              device=dev), dev,
+        bound(obs.nbytes + world.nbytes + (9 + 2 + 12 * V) * 8, flops),
+        bound(20 * V * N * 13 * 2 * 8 * 8, 0), allow_syncs=True)
+    cpu_ms, (p, rmse) = _host_ms(lambda: np_zhang99(world, obs, 20))
+    got = np.array([res.K[0, 0], res.K[1, 1], res.K[0, 2], res.K[1, 2]])
+    want = np.array([p[0], p[1], p[3], p[4]])
+    rel = np.abs(got / want - 1)
+    print(f"breadth_zhang99: fx fy cx cy {got.round(4).tolist()} against the "
+          f"numpy Zhang99's {want.round(4).tolist()} (relative "
+          f"{rel.max():.3e}, bar 1e-3); truth {[520.0, 515.0, 320.0, 240.0]}; "
+          f"radial {[round(k, 5) for k in res.radial]}; reprojection RMSE "
+          f"{res.reprojection_rmse:.6f} px (numpy {rmse:.6f}); numpy on the "
+          f"host (a CPU figure) {cpu_ms:.1f} ms")
+    check(bool(np.isfinite(got).all()) and rel.max() <= 1e-3,
+          f"breadth_zhang99: K {got} against numpy's {want}")
+
+
+def robust_scene(n, outliers, planar, seed=0):
+    """n correspondences between two views of a camera (f 500, 640x480)
+    moved 0.6 sideways, 0.3 px noise, ``outliers`` of them replaced by
+    points drawn anywhere in the image.  Returns pixels (p1, p2), the
+    normalized coordinates and the true-inlier mask.  An outlier lands
+    within 1 px of its epipolar line (and is an inlier of the true F) with
+    probability about 0.5 %: 300 of them hold 1-2 such on average (seed 0:
+    3, seed 1: 0-1 on the CPU), beside the 1 % bar's 3."""
+    rng = np.random.default_rng(seed)
+    Kc = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]])
+    depth = 6.0 + (np.zeros(n) if planar else rng.uniform(0, 6, n))
+    X = np.c_[rng.uniform(-2.5, 2.5, n), rng.uniform(-1.8, 1.8, n), depth]
+    wv = np.array([0.02, -0.05, 0.01])
+    th = np.linalg.norm(wv)
+    kx = np.array([[0, -wv[2], wv[1]], [wv[2], 0, -wv[0]],
+                   [-wv[1], wv[0], 0]]) / th
+    R = np.eye(3) + np.sin(th) * kx + (1 - np.cos(th)) * kx @ kx
+    X2 = X @ R.T + np.array([0.6, 0.05, 0.1])
+    n1 = X[:, :2] / X[:, 2:]
+    n2 = X2[:, :2] / X2[:, 2:]
+    pix = lambda q: q @ Kc[:2, :2].T + Kc[:2, 2]
+    p1 = pix(n1) + rng.normal(0, 0.3, (n, 2))
+    p2 = pix(n2) + rng.normal(0, 0.3, (n, 2))
+    bad = rng.permutation(n) < int(outliers * n)
+    p2[bad] = rng.uniform([0, 0], [640, 480], (int(bad.sum()), 2))
+    unpix = lambda q: (q - Kc[:2, 2]) / Kc[0, 0]
+    return p1, p2, unpix(p1), unpix(p2), ~bad
+
+
+def phase_geo_robust(dev) -> None:
+    """``geo_robust:`` RANSAC for F (7-point, LO refits), E (Nister 5-point)
+    and H (4-point DLT) over 1,000 correspondences with 30 % outliers and
+    512 hypotheses each."""
+    from boofcv_tpu_torch.geo import robust
+    n, K_h = N_ROBUST, ROBUST_HYPOTHESES
+    g = torch.Generator(device=dev)
+    cases = (
+        ("ransac_fundamental", False, 7, 3,
+         lambda p1, p2, q1, q2: robust.ransac_fundamental(
+             g.manual_seed(1), p1, p2, num_hypotheses=K_h)),
+        ("ransac_essential nister5", False, 5, 10,
+         lambda p1, p2, q1, q2: robust.ransac_essential(
+             g.manual_seed(2), q1, q2, num_hypotheses=K_h,
+             inlier_threshold=(1.0 / 500.0) ** 2)),
+        ("ransac_homography", True, 4, 1,
+         lambda p1, p2, q1, q2: robust.ransac_homography(
+             g.manual_seed(3), p1, p2, num_hypotheses=K_h)))
+    for name, planar, size, sols, fn in cases:
+        p1, p2, q1, q2, good = robust_scene(n, ROBUST_OUTLIERS, planar,
+                                            seed=1)
+        args = [torch.from_numpy(a).to(dev) for a in (p1, p2, q1, q2)]
+        # a minimal solve of ~2,000 operations (Nister ~60,000 with its 120
+        # Durand-Kerner iterations) and 40 a residual of every solution
+        solve = 60000.0 if sols == 10 else 2000.0
+        res, _ = _breadth(
+            "geo_robust", f"{name} {n} points {int(ROBUST_OUTLIERS * 100)} % "
+            f"outliers {K_h} hypotheses", lambda: fn(*args), dev,
+            bound(n * 4 * 8 + n, K_h * (solve + sols * n * 40.0)),
+            bound(K_h * sols * n * 8 * 4, 0), allow_syncs=True)
+        kept = res.inliers.cpu().numpy()
+        inl = float(kept[good].mean())
+        out = float(kept[~good].mean())
+        print(f"geo_robust: {name}: {int(kept.sum())} inliers; true inliers "
+              f"kept {inl:.4f} (bar 0.95), outliers accepted {out:.4f} (bar "
+              f"0.01)")
+        check(inl >= 0.95 and out <= 0.01, f"geo_robust: {name} kept "
+                                           f"{inl} of the inliers, {out} "
+                                           "of the outliers")
+    # Nister's degree-10 polynomial roots, as one RANSAC call solves them
+    from boofcv_tpu_torch.geo import smalllinalg
+    coeffs = torch.randn((K_h, 11), generator=g.manual_seed(4), device=dev,
+                         dtype=torch.float64)
+    _breadth_stages("geo_robust", (
+        (f"poly_roots [{K_h}, 11], 120 Durand-Kerner iterations",
+         lambda: smalllinalg.poly_roots(coeffs)),))
+
+
+def phase_sparse_ssd(dev) -> dict:
+    """The sparse matcher with ``error="ssd"`` at the main path's shape (512
+    points on the 640x480 pair, 96 disparities, radius 3): the window-gather
+    kernel's launches on that path (its windows are the SAD's, held bit-equal
+    to the plain gather in phase 3), and the costs against the same costs
+    on the CPU (the plain gather).  Returns the launches."""
+    from boofcv_tpu_torch.feature import disparity
+    from boofcv_tpu_torch.kernels import window_gather as wg
+    left_np, right_np, gt, _ = scene_pair(0)
+    rng = np.random.default_rng(3)
+    ys = rng.integers(0, H, 512).astype(np.int32)
+    xs = rng.integers(DMAX, W, 512).astype(np.int32)
+    cfg = disparity.DisparityConfig(max_disparity=DMAX, radius_x=3,
+                                    radius_y=3, error="ssd",
+                                    texture_threshold=0.0)
+    args = [torch.from_numpy(a) for a in (left_np, right_np, ys, xs)]
+    on_card = [a.to(dev) for a in args]
+    torch.cuda.synchronize()
+    wg.reset_launch_count()
+    d, v = disparity.sparse_block_match(*on_card, cfg)
+    torch.cuda.synchronize()
+    launches = {"window_gather": wg.launch_count()}
+    costs_card = disparity._sparse_costs_ssd(*on_card, cfg).cpu()
+    costs_cpu = disparity._sparse_costs_ssd(*args, cfg)
+    near = costs_cpu < 1e17
+    rel = float(((costs_card - costs_cpu).abs() / costs_cpu.clamp(min=1.0))
+                [near].max())
+    err = float(np.median(np.abs(d.cpu().numpy() - gt[ys, xs])[
+        v.cpu().numpy()]))
+    print(f"sparse_ssd: sparse_block_match(error='ssd') {len(ys)} points "
+          f"D={DMAX} radius 3: window_gather launched "
+          f"{launches['window_gather']} times; costs on the card against the "
+          f"CPU's (plain gather) within {rel:.3e} relative (bar 1e-5); "
+          f"{int(v.sum())} valid, median error {err:.4f} px against the "
+          f"plane (bar 0.5)")
+    check(launches["window_gather"] == 2,
+          f"sparse_ssd: {launches['window_gather']} gathers, not 2")
+    check(rel <= 1e-5 and err <= 0.5, "sparse_ssd: costs or disparities off")
+    return launches
 
 
 def main() -> int:
@@ -2314,6 +2927,10 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     try:
+        t_start = time.perf_counter()
+        clock = lambda what: print(f"clock: {what} done "
+                                   f"{time.perf_counter() - t_start:.1f} s "
+                                   f"into the run")
         phase_environment()
         phase_build()
         t0 = time.perf_counter()
@@ -2331,20 +2948,31 @@ def main() -> int:
         phase_ba_stages(dev)
         launches["VO with window BA"] = phase_ba_vo(dev, poses, frames)
         phase_ba_scale(dev)
+        clock("the VO and BA phases")
         phase_breadth_disparity(dev)
         phase_breadth_surf(dev)
         phase_breadth_assoc(dev)
         phase_breadth_flow(dev)
+        clock("breadth_bm to breadth_flow")
+        for phase in (phase_breadth_canny, phase_breadth_sift,
+                      phase_breadth_flow2, phase_breadth_zhang99,
+                      phase_geo_robust):
+            phase(dev)
+            clock(phase.__name__)
+        launches["sparse SSD"] = phase_sparse_ssd(dev)
         phase_breadth_cpu_vs_card(dev)
+        clock("phase_sparse_ssd and phase_breadth_cpu_vs_card")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     measured["klt_track"]["max_abs_err"] = max(
         measured["klt_track"]["max_abs_err"],
         batched["klt_track"].pop("max_abs_err"))
-    for name in KERNELS:
-        for path, counts in launches.items():
-            if counts[name] < 1:
+    # each path names the kernels it runs (the sparse SSD path runs only
+    # the gather); every one of them must have launched on it
+    for path, counts in launches.items():
+        for name, n in counts.items():
+            if n < 1:
                 print(f"chip_smoke: FAILED: {name} was not launched on the "
                       f"path {path!r}", file=sys.stderr)
                 return 1
@@ -2353,8 +2981,9 @@ def main() -> int:
     # B = 8 and B = 16 shapes
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
-         "launches": sum(c[name] for c in launches.values()),
-         "launches_by_path": {p: c[name] for p, c in launches.items()},
+         "launches": sum(c.get(name, 0) for c in launches.values()),
+         "launches_by_path": {p: c[name] for p, c in launches.items()
+                              if name in c},
          **measured[name], "batched": batched[name]}
         for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {

@@ -181,5 +181,9 @@ def test_associate_nearest_neighbor_kdtree(mutual):
         mutual=mutual)
     _same_matches(ref, out, 0)
     again = ta.associate_nearest_neighbor_kdtree(a, b, max_error=0.5,
-                                                 mutual=mutual)
+                                                 mutual=mutual, device="cpu")
     assert torch.equal(again.dst, out.dst) and again.dst.device.type == "cpu"
+    # numpy descriptors and no device: the card, never the CPU by default
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            ta.associate_nearest_neighbor_kdtree(a, b, mutual=mutual)

@@ -560,3 +560,95 @@ def test_breadth_makes_no_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+# ---- the rest of the breadth surface: the card against the CPU ------------
+
+def test_canny_on_card_equals_cpu(cuda):
+    """Canny's mask (blur, Sobel, NMS and the hysteresis fixpoint) is the
+    same on the card as on the CPU, and so is the trip count."""
+    from boofcv_tpu_torch.feature import canny
+    left, _ = _int_pair(4)
+    c, g = _on_both(cuda, lambda x: canny.canny(x, 2.0, 8.0), left)
+    assert torch.equal(c, g) and 0 < int(c.sum()) < c.numel()
+    nms = canny._nms(left, -1.0, 2)
+    assert canny._hysteresis(nms, 2.0, 8.0)[1] == canny._hysteresis(
+        nms.to(cuda), 2.0, 8.0)[1]
+
+
+@pytest.mark.parametrize("error", ["ssd", "sad"])
+def test_sparse_costs_launch_window_gather(cuda, error):
+    """The sparse SSD and SAD costs on the card read their windows through
+    the kernel (two launches) and equal the same costs from the plain
+    gather: SAD of integer images exactly where no 1e6 sentinel is summed
+    (past 2^24 the sum rounds with its order), SSD to float32 rounding of
+    the squares' sum."""
+    from boofcv_tpu_torch.feature import disparity
+    left, right = _int_pair(5)
+    rng = np.random.default_rng(5)
+    ys = torch.from_numpy(rng.integers(0, 64, 200).astype(np.int32))
+    xs = torch.from_numpy(rng.integers(0, 96, 200).astype(np.int32))
+    cfg = disparity.DisparityConfig(max_disparity=16, error=error)
+    score = {"ssd": disparity._sparse_costs_ssd,
+             "sad": disparity._sparse_costs_sad}[error]
+    before = wg.launch_count()
+    g = score(left.to(cuda), right.to(cuda), ys.to(cuda), xs.to(cuda), cfg)
+    torch.cuda.synchronize()
+    assert wg.launch_count() == before + 2
+    c = score(left, right, ys, xs, cfg)
+    if error == "sad":
+        inside = c < 1e6
+        assert bool(inside.any()) and torch.equal(c[inside], g.cpu()[inside])
+    else:
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-6, atol=1e-3)
+    d_c, v_c = disparity.sparse_block_match(left, right, ys, xs, cfg)
+    d_g, v_g = disparity.sparse_block_match(left.to(cuda), right.to(cuda),
+                                            ys.to(cuda), xs.to(cuda), cfg)
+    assert float((v_c == v_g.cpu()).float().mean()) >= 0.99
+
+
+def test_new_breadth_float_paths_match_the_cpu(cuda):
+    """SIFT keypoints as sets (1e-3 px) and descriptors (1e-4 where both
+    found the keypoint with one orientation), the three flows (1e-4 px;
+    Brox on 99.5 % of the interior pixels and 1e-3 on all of them: its
+    lagged weights carry the rounding of 20 sweeps; block flow exactly where
+    no sentinel is in the window), and a RANSAC
+    fundamental matrix with injected index sets (1e-9 up to sign)."""
+    from boofcv_tpu_torch.feature import flow, sift
+    from boofcv_tpu_torch.geo import robust
+    left, _ = _int_pair(6)
+    (ck, cd), (gk, gd) = _on_both(cuda, lambda x: sift.detect_describe(
+        x, max_features=60, num_octaves=2), left)
+    a = torch.stack([ck.ys, ck.xs], 1)[ck.valid]
+    b = torch.stack([gk.ys, gk.xs], 1)[gk.valid]
+    assert a.shape == b.shape and len(a) >= 5
+    near = torch.cdist(b.double(), a.double()).argmin(1)
+    assert float((b - a[near]).abs().max()) <= 1e-3
+    same = (gd[gk.valid] - cd[ck.valid][near]).abs().amax(1) <= 1e-4
+    assert float(same.float().mean()) >= 0.9
+    moved = torch.roll(left, (1, 2), (0, 1))
+    (cu, cv), (gu, gv) = _on_both(cuda, lambda i1, i2: flow.brox_warping(
+        i1, i2, scales=(1, 2), outer_iterations=2, inner_iterations=10),
+        left, moved)
+    d = torch.maximum((cu - gu).abs(), (cv - gv).abs())[7:-7, 7:-7]
+    assert float((d <= 1e-4).float().mean()) >= 0.995 and float(d.max()) <= 1e-3
+    (cu, cv, cok), (gu, gv, gok) = _on_both(cuda, lambda i1, i2:
+                                            flow.dense_klt(i1, i2,
+                                                           scales=(1, 2)),
+                                            left, moved)
+    assert float((cok == gok).float().mean()) >= 0.999
+    assert float((cu - gu).abs()[cok & gok].max()) <= 1e-4
+    (cu, cv, cs), (gu, gv, gs) = _on_both(cuda, flow.block_flow, left, moved)
+    inner = np.s_[7:-7, 7:-7]
+    assert torch.equal(cs[inner], gs[inner]) and torch.equal(cu[inner],
+                                                             gu[inner])
+    rng = np.random.default_rng(6)
+    p1 = torch.from_numpy(rng.uniform(0, 640, (200, 2)))
+    p2 = p1 + torch.from_numpy(rng.normal(0, 0.3, (200, 2))) + 5.0
+    idx = robust.sample_indices(torch.Generator().manual_seed(0), 64, 7, 200)
+    c, g = _on_both(cuda, lambda x, y, i: robust.ransac_fundamental(
+        None, x, y, num_hypotheses=64, idx=i), p1, p2, idx)
+    sign = torch.sign((c.model[0] * g.model[0]).sum())
+    torch.testing.assert_close(g.model[0] * sign, c.model[0], rtol=0,
+                               atol=1e-9)
+    assert torch.equal(c.inliers, g.inliers)

@@ -327,3 +327,93 @@ def test_sparse_block_match_reads_the_widened_config():
         assert 0 < int(ov.sum()) < 120
         np.testing.assert_allclose(od.numpy()[ov.numpy()],
                                    np.asarray(rd)[ov.numpy()], atol=1e-4)
+
+
+def _sparse_points(seed, h, w, n):
+    rng = np.random.default_rng(seed)
+    ys = rng.integers(0, h, n).astype(np.int32)
+    xs = rng.integers(0, w, n).astype(np.int32)
+    ys[:4] = [0, 1, h - 1, h - 2]                     # rows past the image
+    xs[:4] = [0, 3, w - 1, 20]
+    return ys, xs
+
+
+def test_sparse_ssd_costs():
+    """SSD costs against the reference's ``_sparse_costs_ssd``.  The
+    reference expands |L - R|^2 as |L|^2 + |R|^2 - 2<L, R> in float32, the
+    port sums the squares: they agree to 1e-5 of |L|^2 + |R|^2 (the
+    expansion's rounding scale), 1e18 where the window leaves the image in
+    both; the winners are equal wherever the reference's second best is
+    more than 1e-3 (relative) above its best."""
+    left, right, _ = _pair(15, 40, 72, 20)
+    ys, xs = _sparse_points(15, 40, 72, 150)
+    jc, tc = _cfgs(max_disparity=20, radius_x=3, radius_y=2, error="ssd")
+    ref = np.asarray(jd._sparse_costs_ssd(*_j(left, right, ys, xs), jc))
+    tl, tr, tys, txs = _t(left, right, ys, xs)
+    out = td._sparse_costs_ssd(tl, tr, tys, txs, tc).numpy()
+    patch, win, inb = td._sparse_windows(tl, tr, tys, txs, tc)
+    energy = (np.sum(patch.numpy().astype(np.float64) ** 2, axis=(-2, -1))
+              [:, None] + np.sum(win.numpy().astype(np.float64) ** 2,
+                                 axis=(-3, -1)))          # [N, D]
+    far = out >= 1e18
+    np.testing.assert_array_equal(far, ref >= 1e18)
+    assert 0 < far.sum() < far.size
+    np.testing.assert_array_less(np.abs(out - ref)[~far],
+                                 1e-5 * energy[~far] + 1e-3)
+    srt = np.sort(ref, axis=1)
+    margin = (srt[:, 1] - srt[:, 0]) / np.maximum(srt[:, 0], 1e-6)
+    sure = (margin > 1e-3) & (srt[:, 0] < 1e17)
+    assert sure.mean() > 0.8
+    np.testing.assert_array_equal(out.argmin(1)[sure], ref.argmin(1)[sure])
+
+
+@pytest.mark.parametrize("bound", [-1.0, 35.0])
+def test_sparse_block_match_ssd(bound):
+    """``error="ssd"`` end to end, the per-pixel bound squared as in the
+    reference: ``valid`` equal and disparities within 1e-3 px where the
+    reference's winner is sure (as above)."""
+    left, right, _ = _pair(16, 40, 72, 20)
+    ys, xs = _sparse_points(16, 40, 72, 150)
+    jc, tc = _cfgs(max_disparity=20, radius_x=3, radius_y=2, error="ssd",
+                   max_per_pixel_error=bound, texture_threshold=0.05)
+    rd, rv = jd.sparse_block_match(*_j(left, right, ys, xs), jc)
+    od, ov = td.sparse_block_match(*_t(left, right, ys, xs), tc)
+    costs = np.asarray(jd._sparse_costs_ssd(*_j(left, right, ys, xs), jc))
+    srt = np.sort(costs, axis=1)
+    sure = (srt[:, 1] - srt[:, 0]) > 1e-3 * np.maximum(srt[:, 0], 1e-6)
+    np.testing.assert_array_equal(ov.numpy()[sure], np.asarray(rv)[sure])
+    both = sure & ov.numpy()
+    assert both.sum() > 40
+    np.testing.assert_allclose(od.numpy()[both], np.asarray(rd)[both],
+                               atol=1e-3)
+    if bound > 0:          # the squared bound rejects some, not all
+        unbounded = tc._replace(max_per_pixel_error=-1.0)
+        assert 0 < int(ov.sum()) < int(td.sparse_block_match(
+            *_t(left, right, ys, xs), unbounded)[1].sum())
+
+
+def test_sparse_block_match_error_names():
+    """"sad" and "sad_xla" are the one SAD; anything else raises."""
+    left, right, _ = _pair(17, 24, 48, 12)
+    ys, xs = _sparse_points(17, 24, 48, 30)
+    args = _t(left, right, ys, xs)
+    a = td.sparse_block_match(*args, td.DisparityConfig(max_disparity=12))
+    b = td.sparse_block_match(*args, td.DisparityConfig(max_disparity=12,
+                                                        error="sad_xla"))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    with pytest.raises(ValueError):
+        td.sparse_block_match(*args, td.DisparityConfig(max_disparity=12,
+                                                        error="census"))
+
+
+def test_sparse_ssd_streams():
+    """Two streams in one call: each equal, bit for bit, to its own call."""
+    pairs = [_pair(18 + b, 32, 64, 16) for b in range(2)]
+    pts = [_sparse_points(18 + b, 32, 64, 60) for b in range(2)]
+    cfg = td.DisparityConfig(max_disparity=16, error="ssd")
+    L, R = (torch.from_numpy(np.stack([p[i] for p in pairs])) for i in (0, 1))
+    Y, X = (torch.from_numpy(np.stack([p[i] for p in pts])) for i in (0, 1))
+    d2, v2 = td.sparse_block_match(L, R, Y, X, cfg)
+    for b in range(2):
+        d1, v1 = td.sparse_block_match(L[b], R[b], Y[b], X[b], cfg)
+        assert torch.equal(d1, d2[b]) and torch.equal(v1, v2[b])

@@ -105,3 +105,66 @@ def test_horn_schunck_pyramid(h, w, scales):
     c = np.s_[12:-12, 12:-12]
     assert abs(float(tu.numpy()[c].mean()) - 3.0) < 1.5
     assert abs(float(tv.numpy()[c].mean()) - 2.0) < 1.5
+
+
+# ---------------------------------------------------------------------------
+# The rest of the module: gradients, box sums, Brox warping, dense KLT,
+# block flow (f32 flow to 1e-4 px unless stated)
+# ---------------------------------------------------------------------------
+
+def test_image_grad_and_box_filter():
+    i1, _ = _pair(6)
+    for r, o in zip(jf._image_grad(jnp.asarray(i1)),
+                    tf._image_grad(torch.from_numpy(i1))):
+        _close(r, o, 0)
+    f = np.round(np.random.default_rng(6).uniform(0, 50, (40, 56))).astype(
+        np.float32)
+    for rad in (1, 3):          # integer sums below 2^24: exact
+        _close(jf._box_filter(jnp.asarray(f), rad),
+               tf._box_filter(torch.from_numpy(f), rad), 0)
+
+
+def test_brox_warping():
+    """Two levels, 2 outer x 10 inner iterations: 1e-4 px.  The smoothness
+    term wraps at the borders in both (``roll``), so the whole field
+    agrees, borders too."""
+    i1, i2 = _pair(7, 64, 96, shift=(1, 2))
+    kw = dict(scales=(1, 2), outer_iterations=2, inner_iterations=10)
+    ru, rv = jf.brox_warping(jnp.asarray(i1), jnp.asarray(i2), **kw)
+    tu, tv = tf.brox_warping(torch.from_numpy(i1), torch.from_numpy(i2), **kw)
+    _close(ru, tu, 1e-4)
+    _close(rv, tv, 1e-4)
+    c = np.s_[10:-10, 10:-10]
+    assert abs(float(tu.numpy()[c].mean()) - 2.0) < 0.5
+
+
+def test_dense_klt():
+    """Per-pixel GN with the stop rules: 1e-4 px where both say valid, the
+    valid masks equal."""
+    i1, i2 = _pair(8, 64, 96, shift=(2, -1))
+    ru, rv, rok = jf.dense_klt(jnp.asarray(i1), jnp.asarray(i2),
+                               scales=(1, 2), iterations=6)
+    tu, tv, tok = tf.dense_klt(torch.from_numpy(i1), torch.from_numpy(i2),
+                               scales=(1, 2), iterations=6)
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(rok))
+    _close(ru, tu, 1e-4)
+    _close(rv, tv, 1e-4)
+    c = np.s_[10:-10, 10:-10]
+    assert abs(float(np.median(tu.numpy()[c])) + 1.0) < 0.1
+
+
+def test_block_flow():
+    """Integer images: SADs are whole numbers, exact where no 1e6 sentinel
+    is in the window (the f32 prefix sums beside it round with the order of
+    the scan), and the flow equal there."""
+    i1, i2 = _pair(9, 48, 64, shift=(1, -2))
+    ru, rv, rs = jf.block_flow(jnp.asarray(i1), jnp.asarray(i2),
+                               search_radius=3, region_radius=2)
+    tu, tv, ts = tf.block_flow(torch.from_numpy(i1), torch.from_numpy(i2),
+                               search_radius=3, region_radius=2)
+    m = 3 + 2                    # search radius + region radius
+    c = np.s_[m:-m, m:-m]
+    np.testing.assert_array_equal(ts.numpy()[c], np.asarray(rs)[c])
+    np.testing.assert_array_equal(tu.numpy()[c], np.asarray(ru)[c])
+    np.testing.assert_array_equal(tv.numpy()[c], np.asarray(rv)[c])
+    assert (tu.numpy()[c] == -2).mean() > 0.9

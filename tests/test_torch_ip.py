@@ -46,6 +46,27 @@ def test_pad(border):
     _close(ref, out, 0)
 
 
+@pytest.mark.parametrize("border", ["EXTENDED", "REFLECT", "WRAP", "ZERO"])
+@pytest.mark.parametrize("h,w", [(3, 4), (1, 5), (7, 1)])
+def test_pad_any_radius(border, h, w):
+    """Radii from 0 to 3x the size on each axis (every one where ``F.pad``'s
+    reflect or circular mode stops: size - 1, size, size + 1), bit-equal to
+    ``jnp.pad`` (2-D, channels-last and planes)."""
+    img = _image(9, h, w)
+    b_j, b_t = jborder.BorderType[border], tborder.BorderType[border]
+    radii = lambda n: sorted({0, 1, n - 1, n, n + 1, 2 * n, 2 * n + 1, 3 * n})
+    for ry in radii(h):
+        for rx in radii(w):
+            ref = np.asarray(jborder.pad(jnp.asarray(img), ry, rx, b_j))
+            _close(ref, tborder.pad(torch.from_numpy(img), ry, rx, b_t), 0)
+            planes = tborder.pad_planes(
+                torch.from_numpy(np.stack([img, img])), ry, rx, b_t)
+            _close(np.stack([ref, ref]), planes, 0)
+    img3 = np.stack([img, 2 * img], -1)
+    ref = jborder.pad(jnp.asarray(img3), 3 * h, 3 * w, b_j)
+    _close(ref, tborder.pad(torch.from_numpy(img3), 3 * h, 3 * w, b_t), 0)
+
+
 @pytest.mark.parametrize("scales", [(1, 2, 4), (1, 2, 4, 8), (1, 4)])
 def test_pyramid_average(scales):
     img = _image(1)

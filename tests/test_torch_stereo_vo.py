@@ -250,14 +250,27 @@ def test_default_device_is_the_card(entry, monkeypatch):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, boofcv_tpu_torch.sfm.stereo_vo, "
+    """Every port module imports with ``jax`` and ``boofcv_tpu`` blocked
+    (an import of either raises), and neither is loaded afterwards."""
+    code = ("import sys\n"
+            "class Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name in ('jax', 'boofcv_tpu') or name.startswith(\n"
+            "                ('jax.', 'boofcv_tpu.')):\n"
+            "            raise ImportError('blocked: ' + name)\n"
+            "sys.meta_path.insert(0, Block())\n"
+            "import boofcv_tpu_torch.sfm.stereo_vo, "
             "boofcv_tpu_torch.io.simulate, boofcv_tpu_torch.kernels._nvcc, "
             "boofcv_tpu_torch.kernels.klt_track, boofcv_tpu_torch.geo.ba, "
             "boofcv_tpu_torch.sfm.window_ba, boofcv_tpu_torch.io.bal, "
             "boofcv_tpu_torch.io.checkpoint, "
-            "boofcv_tpu_torch.examples.bundle_adjustment; "
+            "boofcv_tpu_torch.examples.bundle_adjustment, "
+            "boofcv_tpu_torch.calib.zhang99, boofcv_tpu_torch.feature.canny, "
+            "boofcv_tpu_torch.feature.sift, boofcv_tpu_torch.feature.flow, "
+            "boofcv_tpu_torch.geo.epipolar, boofcv_tpu_torch.geo.robust, "
+            "boofcv_tpu_torch.geo.triangulate\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'boofcv_tpu.'))); print(bad); "
+            "m.startswith(('jax.', 'boofcv_tpu.'))); print(bad)\n"
             "sys.exit(1 if bad else 0)")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)
