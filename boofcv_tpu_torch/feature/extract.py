@@ -1,6 +1,6 @@
 """Non-maximum suppression + N-best selection (port of
 ``boofcv_tpu/feature/extract.py``: ``Detections``, ``nonmax_mask``,
-``select_n_best``, ``detect``, ``subpixel_quadratic``).
+``select_n_best``, ``detect``, ``subpixel_quadratic``, ``detect_tracks``).
 
 Reference analog: NonMaxBlock.java (strict), SelectNBestFeatures.java.
 ``torch.topk`` orders ties differently from ``lax.top_k``, so the two
@@ -17,6 +17,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from boofcv_tpu_torch.feature import intensity
 
 
 class Detections(NamedTuple):
@@ -94,3 +96,24 @@ def subpixel_quadratic(intensity: torch.Tensor, det: Detections) -> tuple:
     ox = torch.where(dxx != 0, -dx_ / dxx, 0.0).clamp(-0.5, 0.5)
     oy = torch.where(dyy != 0, -dy_ / dyy, 0.0).clamp(-0.5, 0.5)
     return (yc + oy).to(torch.float32), (xc + ox).to(torch.float32)
+
+
+def detect_tracks(image: torch.Tensor, max_features: int, radius: int = 6,
+                  threshold: float = 1.0, border: int = 12,
+                  shi_tomasi_radius: int = 2) -> tuple:
+    """Shi-Tomasi corners to seed KLT tracks: the shared recipe of
+    ``sfm/stitch2d``, ``sfm/mono_plane_vo`` and ``sfm/overhead_vo``.
+    Returns (ys [N] f32, xs [N] f32, valid [N])."""
+    inten = intensity.shi_tomasi(image, radius=shi_tomasi_radius)
+    det = detect(inten, max_features=max_features, radius=radius,
+                 threshold=threshold, border=border)
+    return det.ys.to(torch.float32), det.xs.to(torch.float32), det.valid
+
+
+def near_live(cand_x, cand_y, xs, ys, alive, radius: int) -> torch.Tensor:
+    """[..., M] candidates within 2 ``radius`` of a live track: the spawns'
+    rejection of corners that would duplicate a track."""
+    d2 = ((cand_x[..., :, None] - xs[..., None, :]) ** 2
+          + (cand_y[..., :, None] - ys[..., None, :]) ** 2)
+    d2 = torch.where(alive[..., None, :], d2, float("inf"))
+    return torch.amin(d2, dim=-1) <= (2 * radius) ** 2

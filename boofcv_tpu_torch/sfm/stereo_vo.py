@@ -151,6 +151,23 @@ def _key_to_seed(key) -> int:
     return int((int(k[0]) << 32) | int(k[1]))
 
 
+def _generator_from_numpy(key, rng_state, device) -> torch.Generator:
+    """The generator a saved state names: at ``rng_state``'s exact position
+    (written by a ``state_to_numpy``), else seeded from the reference's
+    ``key``."""
+    if rng_state is None:
+        return _generator(device, _key_to_seed(key))
+    g = torch.Generator(device=device)
+    g.set_state(torch.as_tensor(np.array(rng_state), dtype=torch.uint8))
+    return g
+
+
+def _seed_key(g: torch.Generator) -> np.ndarray:
+    """The reference's PRNGKey of the generator's seed."""
+    seed = g.initial_seed()
+    return np.array([(seed >> 32) & 0xffffffff, seed & 0xffffffff], np.uint32)
+
+
 def state_from_numpy(d: dict, device=None) -> StereoVoState:
     """Build the port's state from numpy arrays named like the reference's
     ``StereoVoState`` fields (``templates`` as a dict of per-level lists
@@ -165,22 +182,16 @@ def state_from_numpy(d: dict, device=None) -> StereoVoState:
     def f(a, dtype):
         return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
 
-    def generator(key, rng_state):
-        if rng_state is None:
-            return _generator(dev, _key_to_seed(key))
-        g = torch.Generator(device=dev)
-        g.set_state(torch.as_tensor(np.array(rng_state), dtype=torch.uint8))
-        return g
-
     tm = d["templates"]
     tl = lambda k: tuple(f(a, torch.float32) for a in tm[k])
     keys = np.asarray(d["key"])
     saved = d.get("rng_state")
     if keys.ndim == 1:
-        rng = generator(keys, saved)
+        rng = _generator_from_numpy(keys, saved, dev)
     else:
-        rng = tuple(generator(k, None if saved is None else saved[i])
-                    for i, k in enumerate(keys))
+        rng = tuple(_generator_from_numpy(
+            k, None if saved is None else saved[i], dev)
+            for i, k in enumerate(keys))
     return StereoVoState(
         xs=f(d["xs"], torch.float32), ys=f(d["ys"], torch.float32),
         world=f(d["world"], torch.float64), alive=f(d["alive"], torch.bool),
@@ -194,12 +205,6 @@ def state_to_numpy(state: StereoVoState) -> dict:
     generator's seed, ``rng_state`` for its exact position; [B, 2] and
     [B, bytes] for a stacked state)."""
     a = lambda x: x.detach().cpu().numpy()
-
-    def key(g):
-        seed = g.initial_seed()
-        return np.array([(seed >> 32) & 0xffffffff, seed & 0xffffffff],
-                        np.uint32)
-
     rng = lambda fn: (fn(state.rng) if isinstance(state.rng, torch.Generator)
                       else np.stack([fn(g) for g in state.rng]))
     return {
@@ -208,7 +213,7 @@ def state_to_numpy(state: StereoVoState) -> dict:
         "templates": {k: [a(x) for x in getattr(state.templates, k)]
                       for k in ("desc", "grad_x", "grad_y")},
         "R": a(state.R), "t": a(state.t),
-        "key": rng(key),
+        "key": rng(_seed_key),
         "rng_state": rng(lambda g: g.get_state().numpy()),
         "uid": a(state.uid), "next_uid": a(state.next_uid),
     }
@@ -223,22 +228,62 @@ def _detect_candidates(image, cfg: StereoVoConfig, n_cand: int):
                           + 2)
 
 
+def _compact(alive: torch.Tensor, cand_ok: torch.Tensor):
+    """Candidates into dead slots by rank, stream by stream: the k-th dead
+    slot takes the k-th usable candidate.  Returns (take [..., N]: the
+    slots that get one, src [..., N]: its candidate index, slot_rank
+    [..., N]: 1-based rank of each dead slot, 0 for a live one).  Every
+    candidate that is not usable writes rank 0 of the table, which is never
+    read, so the order of those duplicate writes does not matter (the
+    reference's ``.at[].set`` leans on the same)."""
+    m = cand_ok.shape[-1]
+    dev = alive.device
+    dead = ~alive
+    slot_rank = torch.cumsum(dead.to(torch.int64), -1) * dead
+    cand_rank = torch.cumsum(cand_ok.to(torch.int64), -1) * cand_ok
+    by_rank = torch.zeros(cand_rank.shape[:-1] + (m + 1,), dtype=torch.int64,
+                          device=dev)
+    by_rank.scatter_(-1, cand_rank,
+                     torch.arange(m, device=dev).expand(cand_rank.shape))
+    n_cand = torch.amax(cand_rank, dim=-1, keepdim=True)
+    take = dead & (slot_rank <= n_cand) & (slot_rank > 0)
+    src = by_rank.gather(-1, torch.clamp(slot_rank, 0, m))
+    return take, src, slot_rank
+
+
+def _spawned_uids(state: StereoVoState, take, slot_rank) -> dict:
+    """uid / next_uid after a spawn: the slots taken get consecutive ids in
+    slot order."""
+    return {"uid": torch.where(
+                take, state.next_uid[..., None] + slot_rank.to(torch.int32)
+                - 1, state.uid),
+            "next_uid": state.next_uid + torch.amax(
+                slot_rank * take, dim=-1).to(torch.int32)}
+
+
+def _mix_templates(take, new: klt.KltTemplates,
+                   old: klt.KltTemplates) -> klt.KltTemplates:
+    """``new`` where ``take``, else ``old``, level by level; existing tracks
+    keep their spawn-time templates (the reference's KLT never re-describes
+    a track)."""
+    mix = lambda a, b: tuple(torch.where(take[..., None, None], x, y)
+                             for x, y in zip(a, b))
+    return klt.KltTemplates(mix(new.desc, old.desc),
+                            mix(new.grad_x, old.grad_x),
+                            mix(new.grad_y, old.grad_y))
+
+
 def _spawn(state: StereoVoState, pyramid, grads, left, right, rectK,
            baseline, cfg: StereoVoConfig) -> StereoVoState:
     """Fill dead slots with fresh detections + stereo depth (addNewTracks):
     detect, reject candidates near live tracks, sparse SAD disparity, lift
     to 3D in the world frame through the current pose."""
-    n = cfg.num_tracks
-    dev = left.device
-    det = _detect_candidates(left, cfg, n)
+    det = _detect_candidates(left, cfg, cfg.num_tracks)
     cand_y = det.ys.to(torch.float32)
     cand_x = det.xs.to(torch.float32)
-    cand_ok = det.valid
-
-    d2 = ((cand_x[..., :, None] - state.xs[..., None, :]) ** 2
-          + (cand_y[..., :, None] - state.ys[..., None, :]) ** 2)
-    d2 = torch.where(state.alive[..., None, :], d2, float("inf"))
-    cand_ok = cand_ok & (torch.amin(d2, dim=-1) > (2 * cfg.detect_radius) ** 2)
+    cand_ok = det.valid & ~extract.near_live(cand_x, cand_y, state.xs,
+                                             state.ys, state.alive,
+                                             cfg.detect_radius)
 
     dcfg = disp_mod.DisparityConfig(
         min_disparity=cfg.min_disparity, max_disparity=cfg.max_disparity,
@@ -251,47 +296,29 @@ def _spawn(state: StereoVoState, pyramid, grads, left, right, rectK,
     Xc = pixel_to_3d_rectified(cand_x.to(torch.float64),
                                cand_y.to(torch.float64),
                                disp.to(torch.float64), rectK, baseline)
+    return _fill_slots(state, cand_x, cand_y, cand_ok, Xc, pyramid, grads,
+                       cfg)
+
+
+def _fill_slots(state: StereoVoState, cand_x, cand_y, cand_ok, Xc, pyramid,
+                grads, cfg: StereoVoConfig) -> StereoVoState:
+    """The spawn's second half: the usable candidates, lifted to ``Xc`` in
+    the camera frame, fill the dead slots in the world frame, with fresh
+    templates and uids."""
     Rinv, tinv = se3.invert(state.R, state.t)
     Xw = Xc @ Rinv.transpose(-1, -2) + tinv[..., None, :]
-
-    # compact candidates into dead slots by rank, stream by stream;
-    # duplicate writes land only on rank 0, which is never read, so write
-    # order does not matter
-    dead = ~state.alive
-    slot_rank = torch.cumsum(dead.to(torch.int64), -1) * dead
-    cand_rank = torch.cumsum(cand_ok.to(torch.int64), -1) * cand_ok
-    by_rank = torch.zeros(cand_rank.shape[:-1] + (n + 1,), dtype=torch.int64,
-                          device=dev)
-    by_rank.scatter_(-1, cand_rank,
-                     torch.arange(n, device=dev).expand(cand_rank.shape))
-    n_cand = torch.amax(cand_rank, dim=-1, keepdim=True)
-    take = dead & (slot_rank <= n_cand) & (slot_rank > 0)
-    src = by_rank.gather(-1, torch.clamp(slot_rank, 0, n))
-
+    take, src, slot_rank = _compact(state.alive, cand_ok)
     new_xs = torch.where(take, cand_x.gather(-1, src), state.xs)
     new_ys = torch.where(take, cand_y.gather(-1, src), state.ys)
     new_world = torch.where(
         take[..., None], Xw.gather(-2, src[..., None].expand(Xw.shape)),
         state.world)
-    new_alive = state.alive | take
-    new_uid = torch.where(
-        take, state.next_uid[..., None] + slot_rank.to(torch.int32) - 1,
-        state.uid)
-    next_uid = state.next_uid + torch.amax(slot_rank * take,
-                                           dim=-1).to(torch.int32)
-
-    # templates at the new positions; existing tracks keep their
-    # spawn-time templates (the reference's KLT never re-describes a track)
-    tmpl_new = klt.sample_templates(pyramid, grads, new_ys, new_xs,
-                                    cfg.pyramid_scales, cfg.template_radius)
-    mix = lambda new, old: tuple(torch.where(take[..., None, None], a, b)
-                                 for a, b in zip(new, old))
-    tmpl = klt.KltTemplates(mix(tmpl_new.desc, state.templates.desc),
-                            mix(tmpl_new.grad_x, state.templates.grad_x),
-                            mix(tmpl_new.grad_y, state.templates.grad_y))
+    tmpl = _mix_templates(take, klt.sample_templates(
+        pyramid, grads, new_ys, new_xs, cfg.pyramid_scales,
+        cfg.template_radius), state.templates)
     return state._replace(xs=new_xs, ys=new_ys, world=new_world,
-                          alive=new_alive, templates=tmpl,
-                          uid=new_uid, next_uid=next_uid)
+                          alive=state.alive | take, templates=tmpl,
+                          **_spawned_uids(state, take, slot_rank))
 
 
 def _rect_k_on(rectK) -> Callable[[torch.device], torch.Tensor]:

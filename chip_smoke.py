@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths (stereo VO, bundle adjustment, the
-breadth surface) once on one CUDA card.
+breadth surface, the other VO families and 2-D motion) once on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -95,7 +96,27 @@ Phases, each printed on its own line(s); any failure exits non-zero:
     neither hand kernel: the reference's modules reach no TPU kernel;
 14. ``sparse_ssd:`` the sparse matcher scoring SSD at the main path's shape
     (512 points, 96 disparities): ``window_gather`` launches twice, its
-    costs equal the CPU's (the plain gather) to 1e-5.
+    costs equal the CPU's (the plain gather) to 1e-5;
+15. the other odometry families and 2-D motion at 640x480, each driven
+    through its user entry point over 17 frames (the first, 2 warm-up, 12
+    timed, one with sync warnings on, one profiled): ``vo_depth:``,
+    ``vo_dual:``, ``vo_quad:`` and ``vo_direct:`` on the reference scene
+    with the reference configs' defaults (512 tracks / 4 levels / D = 96;
+    256 SURF features; scales 1/2/4 with 10 iterations a level; the RGB-D
+    families read the plane's exact depth), held to the stereo bars (quad:
+    ATE below 0.25 x motion); ``vo_mono_plane:`` (plane 4 m ahead),
+    ``vo_overhead:`` (overhead 320x320, camera 1.5 m up, pitched 0.6 rad)
+    and ``stitch2d:`` (12 px a frame) with 300 tracks, each held to its
+    JAX test's bars (mono-plane: 0.11 x motion, above the JAX reference's
+    own drift on this scene); ``point_tracker:`` the KLT, combined,
+    two-pass and DDA trackers on a texture moving (1, 2) px a frame (median
+    motion error at most 0.1 px, DDA 0.5 px).  Each prints frames/s,
+    kernels a frame, busy ms, idle share, syncs a frame, peak memory and
+    its bar; every KLT path must launch ``klt_track`` and the dual-track
+    spawn ``window_gather``, and each KLT path's ``track_pyramid`` calls of
+    one frame go through the kernel and the plain version on the card, held
+    to phase 3's limits at the path's own levels, tracks, image, radius and
+    iteration cap.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -2920,6 +2941,386 @@ def phase_sparse_ssd(dev) -> dict:
     return launches
 
 
+# ---- the other odometry families and 2-D motion ---------------------------
+
+FAMILY_FRAMES = 17   # the first frame, 2 warm-up, 12 timed, 1 counted, 1 traced
+FAMILY_TRACKS = 300  # mono-plane, overhead and stitcher tracks
+
+
+def plane_depths(poses, k, h, w, origin=(0.0, 0.0, 8.0),
+                 plane_x=(1.0, 0.0, 0.0), plane_y=(0.0, 1.0, -0.15)):
+    """[h, w] float32 depth of each world->camera pose's view of the
+    textured plane of ``_scene`` (its left images are the gray frames): the
+    ray-plane intersection's z in the camera frame, 0 where the ray misses."""
+    o = np.asarray(origin)
+    n = np.cross(plane_x, plane_y)
+    n = n / np.linalg.norm(n)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    rays = np.stack([xs, ys, np.ones_like(xs)], -1) @ np.linalg.inv(k).T
+    out = []
+    for R, t in poses:
+        c0 = -R.T @ t
+        d_w = rays @ R
+        denom = d_w @ n
+        s = ((o - c0) @ n) / np.where(np.abs(denom) < 1e-12, 1e-12, denom)
+        Xc = (c0 + s[..., None] * d_w) @ R.T + t
+        out.append(np.where(s > 0, Xc[..., 2], 0.0).astype(np.float32))
+    return out
+
+
+def mono_plane_scene(k, h, w, n_frames, seed=0):
+    """A camera translating parallel to a textured plane 4 m ahead (normal
+    +z in the camera frame; ``tests/test_mono_plane_vo.py``'s scene at
+    this width): (poses, frames)."""
+    from boofcv_tpu_torch.io import simulate
+    tex = simulate.noise_texture(np.random.default_rng(seed), size=1024)
+    poses = [(np.eye(3), -np.array([0.06 * i, 0.02 * i, 0.0]))
+             for i in range(n_frames)]
+    frames = [simulate.render_plane(
+        tex, k, R, t, h, w, plane_origin=(0.0, 0.0, 4.0),
+        plane_x=(1.0, 0.0, 0.0), plane_y=(0.0, 1.0, 0.0),
+        texture_scale=120.0) for R, t in poses]
+    return poses, frames
+
+
+OVERHEAD_HEIGHT, OVERHEAD_PITCH, OVERHEAD_STEP = 1.5, 0.6, 0.08
+
+
+def overhead_scene(k, h, w, n_frames, seed=5):
+    """A camera 1.5 m above a textured ground plane, pitched down 0.6 rad,
+    moving forward 0.08 m a frame (``tests/test_vo_variants.py``'s overhead
+    scene at this width): (R_pc, t_pc, frames)."""
+    from boofcv_tpu_torch.io import simulate
+    tex = simulate.noise_texture(np.random.default_rng(seed), size=1024)
+    c_, s_ = np.cos(OVERHEAD_PITCH), np.sin(OVERHEAD_PITCH)
+    Rp = np.array([[1.0, 0, 0], [0, c_, -s_], [0, s_, c_]])
+    frames = [simulate.render_plane(
+        tex, k, Rp, -Rp @ np.array([0.0, 0.0, OVERHEAD_STEP * i]), h, w,
+        plane_origin=(0.0, OVERHEAD_HEIGHT, 0.0), plane_x=(1.0, 0.0, 0.0),
+        plane_y=(0.0, 0.0, 1.0), texture_scale=60.0)
+        for i in range(n_frames)]
+    return Rp, Rp @ np.array([0.0, OVERHEAD_HEIGHT, 0.0]), frames
+
+
+def sliding_frames(h, w, n_frames, dy, dx, seed, margin=20):
+    """(texture, frames): [h, w] windows of a 1024x1024 noise texture, the
+    window moving by (dy, dx) px a frame (the content by -(dy, dx))."""
+    from boofcv_tpu_torch.io import simulate
+    big = simulate.noise_texture(np.random.default_rng(seed), size=1024)
+    return big, [big[margin + dy * i:margin + dy * i + h,
+                     margin + dx * i:margin + dx * i + w].copy()
+                 for i in range(n_frames)]
+
+
+KLT_FAMILY_ERR = {}   # family path -> its klt_track check's position gap
+
+
+def _capture_klt(fn) -> list:
+    """Run ``fn()`` with ``klt.track_pyramid`` wrapped to keep the inputs of
+    each call: [(pyramid, templates, ys, xs, scales, cfg), ...]."""
+    from boofcv_tpu_torch.feature import klt
+    calls, inner = [], klt.track_pyramid
+
+    def recording(pyramid, templates, ys, xs, scales, cfg):
+        calls.append((pyramid, templates, ys, xs, scales, cfg))
+        return inner(pyramid, templates, ys, xs, scales, cfg)
+    klt.track_pyramid = recording
+    try:
+        fn()
+    finally:
+        klt.track_pyramid = inner
+    return calls
+
+
+def _klt_family_check(path: str, calls) -> float:
+    """Each ``track_pyramid`` call of one family frame, at the family's own
+    shapes (levels, tracks, image, radius, iteration cap), through the
+    kernel and the plain version on the card, held to
+    :func:`phase_klt_kernel`'s limits: fault codes equal on 99 % of the
+    tracks, the tracks both keep within 2e-3 px.  Returns the largest
+    gap."""
+    from boofcv_tpu_torch.feature import klt
+    check(len(calls) > 0, f"{path}: no track_pyramid call to check")
+    worst = 0.0
+    for j, (pyr, tm, ys, xs, scales, cfg) in enumerate(calls):
+        n = ys.numel()
+        gy, gx, gf = klt.track_pyramid(pyr, tm, ys, xs, scales, cfg)
+        wy_, wx_, wf = klt.track_pyramid_reference(pyr, tm, ys, xs, scales,
+                                                   cfg)
+        same = int((gf == wf).sum())
+        both = (gf == klt.TRACK_OK) & (wf == klt.TRACK_OK)
+        gap = float(torch.maximum((gy - wy_).abs(), (gx - wx_).abs())[both]
+                    .max()) if bool(both.any()) else 0.0
+        print(f"kernel: klt_track {path} call {j}: n={n} levels="
+              f"{len(scales)} image={tuple(pyr[0].shape[-2:])} radius="
+              f"{cfg.template_radius} max_iterations={cfg.max_iterations} "
+              f"faults_equal={same}/{n} both_ok={int(both.sum())} "
+              f"max_abs_err={gap:.3e} (limits 99 %, 2e-3 px)")
+        check(bool(torch.isfinite(gy).all() and torch.isfinite(gx).all()),
+              f"klt_track {path} call {j}: non-finite position")
+        check(same >= 0.99 * n, f"klt_track {path} call {j}: fault codes "
+              f"equal on {same} of {n} tracks (< 99 %)")
+        check(bool(both.any()), f"klt_track {path} call {j}: no track OK")
+        check(gap <= 2e-3, f"klt_track {path} call {j}: positions differ "
+              f"by {gap} px")
+        worst = max(worst, gap)
+    return worst
+
+
+def _family(tag: str, what: str, dev, process, accuracy, kernels=(),
+            n_frames: int = FAMILY_FRAMES) -> dict:
+    """Drive one family's frames through ``process(i)`` on the card and print
+    its line.  Frames 0 .. n-3 are the counted run: the first, 2 warm-up
+    and the timed ones (frames/s from the median host wall ms of the timed
+    frames, a synchronize after each), with the hand kernels' launches
+    counted from 0 and the peak memory; then ``accuracy()`` -> (text, ok);
+    frame n-2 with sync warnings on (host syncs by call site), its
+    ``track_pyramid`` inputs kept for :func:`_klt_family_check` where the
+    path runs ``klt_track``; frame n-1 under the profiler (kernels, device
+    busy ms, and the idle share of the median frame).  Fails if the bar is
+    missed, a kernel in ``kernels`` did not launch or the kernel check
+    fails; returns those kernels' launches."""
+    from boofcv_tpu_torch.kernels import klt_track as kt
+    from boofcv_tpu_torch.kernels import window_gather as wg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    wg.reset_launch_count()
+    kt.reset_launch_count()
+    wall = []
+    for i in range(n_frames - 2):
+        t0 = time.perf_counter()
+        process(i)
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t0))
+    launches = {"klt_track": kt.launch_count(),
+                "window_gather": wg.launch_count()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    text, ok = accuracy()
+    calls = []
+    _, syncs = _count_sync_warnings(
+        lambda: calls.extend(_capture_klt(lambda: process(n_frames - 2))))
+    torch.cuda.synchronize()
+    events, _ = _trace(lambda: process(n_frames - 1))
+    timed = wall[3:]
+    med = float(np.median(timed))
+    busy = sum(e.device_time for e in events) / 1e3
+    print(f"{tag}: {what}: frames/s={1e3 / med:.3f} (median of "
+          f"{len(timed)} frames after the first and 2 warm-up; ms median="
+          f"{med:.3f} p90={np.percentile(timed, 90):.3f} first={wall[0]:.3f})"
+          f"; launches in {n_frames - 2} frames: klt_track="
+          f"{launches['klt_track']} window_gather={launches['window_gather']}"
+          f"; one profiled frame: {len(events)} kernels, device busy "
+          f"{busy:.3f} ms, idle share {1 - busy / med:.4f} of the median "
+          f"frame; host syncs a frame={sum(syncs.values())} "
+          f"{dict(sorted(syncs.items()))}; peak device memory MiB="
+          f"{peak:.1f}; accuracy: {text}")
+    check(ok, f"{tag}: accuracy bar missed: {text}")
+    for name in kernels:
+        check(launches[name] > 0, f"{tag}: {name} did not launch")
+    if "klt_track" in kernels:
+        path = f"{tag} {what.split()[0]}"
+        KLT_FAMILY_ERR[path] = _klt_family_check(path, calls)
+    return {name: launches[name] for name in kernels}
+
+
+def _pose_bars(poses, centres, rots, oks, frac: float) -> tuple:
+    """(text, ok): every pose accepted, ATE below ``frac`` x the motion,
+    final rotation error below 2 degrees.  ``centres`` / ``rots``:
+    camera->world of the frames from the first on (the estimate's world is
+    the first camera, as the ground truth's)."""
+    gt = np.stack([-R.T @ t for R, t in poses[:len(centres)]])
+    ate = float(np.mean(np.linalg.norm(np.stack(centres) - gt, axis=1)))
+    total = float(np.linalg.norm(gt[-1]))
+    rot = _rot_err_deg(rots[-1], poses[len(rots) - 1][0])
+    n_ok = sum(oks[1:])
+    return (f"pose_ok={n_ok}/{len(oks) - 1} ate={ate:.6f} total_motion="
+            f"{total:.6f} ate_frac={ate / total:.6f} (bar {frac}) "
+            f"final_rot_err_deg={rot:.6f} (bar 2)",
+            n_ok == len(oks) - 1 and ate < frac * total and rot < 2.0)
+
+
+def _vo_family(tag, what, dev, vo, inputs, poses, frac, kernels):
+    """A VO front end's family run: ``vo.process(*inputs[i])`` and its pose
+    each frame, held to :func:`_pose_bars`."""
+    oks, centres, rots = [], [], []
+
+    def process(i):
+        oks.append(vo.process(*inputs[i]))
+        R, c = vo.camera_to_world()
+        centres.append(c)
+        rots.append(R)
+
+    def accuracy():
+        return _pose_bars(poses, centres, rots, oks, frac)
+    return _family(tag, what, dev, process, accuracy, kernels)
+
+
+def phase_vo_families(dev, poses, frames) -> dict:
+    """``vo_depth:``, ``vo_dual:``, ``vo_quad:`` and ``vo_direct:`` on the
+    first frames of the 640x480 reference scene (its left images, and the
+    plane's exact depth for the RGB-D families) with the reference
+    configs' defaults.  Returns the launches by path."""
+    from boofcv_tpu_torch.sfm import (depth_vo, direct_vo, dual_track_vo,
+                                      quad_vo, stereo_vo)
+    n = FAMILY_FRAMES
+    on = lambda a: torch.from_numpy(a).to(dev)
+    pairs = [(on(l), on(r)) for l, r in frames[:n]]
+    rgbd = [(l, on(d)) for (l, _), d in zip(pairs, plane_depths(
+        poses[:n], K, H, W))]
+    launches = {}
+    cfg = stereo_vo.StereoVoConfig()
+    launches["vo_depth"] = _vo_family(
+        "vo_depth", f"DepthVisualOdometry {W}x{H}, {cfg.num_tracks} tracks, "
+        f"pyramid {cfg.pyramid_scales}", dev,
+        depth_vo.DepthVisualOdometry(cfg, K, H, W, device=dev), rgbd, poses,
+        0.15, ("klt_track",))
+    dcfg = dual_track_vo.DualTrackVoConfig()
+    launches["vo_dual"] = _vo_family(
+        "vo_dual", f"DualTrackVisualOdometry {W}x{H}, {dcfg.num_tracks} "
+        f"tracks, pyramid {dcfg.pyramid_scales}, D={dcfg.max_disparity}", dev,
+        dual_track_vo.DualTrackVisualOdometry(dcfg, K, BASELINE, device=dev),
+        pairs, poses, 0.15, ("klt_track", "window_gather"))
+    qcfg = quad_vo.QuadVoConfig()
+    _vo_family("vo_quad", f"QuadVisualOdometry {W}x{H}, "
+               f"{qcfg.num_features} SURF features an image (no hand kernel)",
+               dev, quad_vo.QuadVisualOdometry(qcfg, K, BASELINE, device=dev),
+               pairs, poses, 0.25, ())
+    _vo_family("vo_direct", f"DirectDepthVisualOdometry {W}x{H}, scales "
+               "(1, 2, 4), 10 Gauss-Newton iterations a level (no hand "
+               "kernel)", dev, direct_vo.DirectDepthVisualOdometry(
+                   K, device=dev), rgbd, poses, 0.15, ())
+    return launches
+
+
+def phase_motion2d(dev) -> dict:
+    """``vo_mono_plane:``, ``vo_overhead:`` (overhead 320x320) and
+    ``stitch2d:`` at 640x480 with 300 tracks.  Returns the launches by
+    path."""
+    from boofcv_tpu_torch.sfm import mono_plane_vo, overhead_vo, stitch2d
+    n = FAMILY_FRAMES
+    launches = {}
+
+    poses, imgs = mono_plane_scene(K, H, W, n)
+    imgs = [torch.from_numpy(f).to(dev) for f in imgs]
+    vo = mono_plane_vo.MonoPlaneVisualOdometry(
+        K, (0.0, 0.0, 1.0), 4.0, num_tracks=FAMILY_TRACKS, device=dev)
+    oks, centres = [], []
+
+    def process(i):
+        oks.append(vo.process(imgs[i]))
+        centres.append(vo.camera_to_world()[1])
+
+    def accuracy():
+        gt = [-R.T @ t for R, t in poses[:len(centres)]]
+        err = float(np.linalg.norm(centres[-1] - gt[-1]))
+        total = float(np.linalg.norm(gt[-1]))
+        return (f"ok={sum(oks)}/{len(oks)} final centre error {err:.6f} of "
+                f"{total:.6f} m (bar 0.11 x: the JAX reference drifts "
+                "0.100 x on this scene, tests/reference_mono_plane_drift.py)",
+                all(oks) and err < 0.11 * total)
+    launches["vo_mono_plane"] = _family(
+        "vo_mono_plane", f"MonoPlaneVisualOdometry {W}x{H}, "
+        f"{FAMILY_TRACKS} tracks, pyramid (1, 2, 4)", dev, process, accuracy,
+        ("klt_track",))
+
+    Rp, tp, imgs = overhead_scene(K, H, W, n)
+    imgs = [torch.from_numpy(f).to(dev) for f in imgs]
+    ovo = overhead_vo.MonoOverheadVisualOdometry(
+        K, Rp, tp, H, W, num_tracks=FAMILY_TRACKS, device=dev)
+    oks = []
+
+    def process(i):
+        oks.append(ovo.process(imgs[i]))
+
+    def accuracy():
+        x, z, yaw = ovo.plane_motion()
+        true_z = OVERHEAD_STEP * (len(oks) - 1)
+        return (f"ok={sum(oks)}/{len(oks)} plane motion x={x:.6f} z={z:.6f} "
+                f"(true {true_z:.6f}) yaw={yaw:.6f} (bars |z - true| < 25 %, "
+                "|x| < 0.1, |yaw| < 0.05)",
+                all(oks) and abs(z - true_z) < 0.25 * true_z and abs(x) < 0.1
+                and abs(yaw) < 0.05)
+    launches["vo_overhead"] = _family(
+        "vo_overhead", f"MonoOverheadVisualOdometry {W}x{H} -> overhead "
+        f"320x320 (0.03 m cells), {FAMILY_TRACKS} tracks, pyramid (1, 2)",
+        dev, process, accuracy, ("klt_track",))
+
+    big, imgs = sliding_frames(H, W, n, 0, 12, seed=0)
+    imgs = [torch.from_numpy(f).to(dev) for f in imgs]
+    mh, mw = H + 40, W + 12 * n + 40
+    st = stitch2d.Stitcher(mh, mw, offset=(20.0, 20.0),
+                           num_tracks=FAMILY_TRACKS, device=dev)
+    oks, hs = [], []
+
+    def process(i):
+        oks.append(st.process(imgs[i]))
+        hs.append(st.H_mosaic_from_frame.copy())
+
+    def accuracy():
+        Hm = hs[-1]
+        tx = 20.0 + 12 * (len(hs) - 1)
+        mosaic = st.image()
+        cover = np.s_[40:H, 40:W + 12 * (len(hs) - 1)]
+        err = float(np.median(np.abs(mosaic[cover] - big[cover])))
+        return (f"ok={sum(oks)}/{len(oks)} H_mosaic_from_frame translation "
+                f"({Hm[0, 2]:.4f}, {Hm[1, 2]:.4f}) for ({tx}, 20.0), diagonal "
+                f"({Hm[0, 0]:.5f}, {Hm[1, 1]:.5f}) (bars 1 px, 0.02), mosaic "
+                f"median error {err:.4f} (bar 4)",
+                all(oks) and abs(Hm[0, 2] - tx) < 1.0
+                and abs(Hm[1, 2] - 20.0) < 1.0 and abs(Hm[0, 0] - 1) < 0.02
+                and abs(Hm[1, 1] - 1) < 0.02 and err < 4.0)
+    launches["stitch2d"] = _family(
+        "stitch2d", f"Stitcher {W}x{H} frames into a {mw}x{mh} mosaic, "
+        f"{FAMILY_TRACKS} tracks, pyramid (1, 2, 4), 20 KLT iterations",
+        dev, process, accuracy, ("klt_track",))
+    return launches
+
+
+def phase_point_trackers(dev) -> dict:
+    """``point_tracker:`` the four trackers with their default capacities on
+    640x480 windows of a texture moving by (1, 2) px a frame, spawning on
+    every fourth frame; the two-pass tracker's second pass is hinted with
+    the true motion.  Bar: over the tracks alive in the last two counted
+    frames, the median error of their motion at most 0.1 px (KLT) or 0.5
+    px (DDA), on at least 50 tracks.  Returns the launches by path."""
+    from boofcv_tpu_torch.feature import point_tracker as pt
+    dy, dx = 1, 2
+    _, imgs = sliding_frames(H, W, FAMILY_FRAMES, dy, dx, seed=7)
+    imgs = [torch.from_numpy(f).to(dev) for f in imgs]
+    launches = {}
+    for name, bar in (("PointTrackerKlt", 0.1), ("PointTrackerCombined", 0.1),
+                      ("PointTrackerTwoPassKlt", 0.1),
+                      ("PointTrackerDda", 0.5)):
+        tracker = getattr(pt, name)(device=dev)
+        seen = []
+
+        def process(i, tracker=tracker, seen=seen, name=name):
+            tracker.process(imgs[i])
+            if name == "PointTrackerTwoPassKlt":
+                tracker.second_pass(tracker.ys - dy, tracker.xs - dx)
+                tracker.finish()
+            if i % 4 == 0:
+                tracker.spawn()
+            seen.append({t.uid: (t.x, t.y) for t in tracker.active_tracks()})
+
+        def accuracy(seen=seen, bar=bar, tracker=tracker):
+            a, b = seen[-2], seen[-1]
+            shared = [u for u in b if u in a]
+            err = [np.hypot(b[u][0] - a[u][0] + dx, b[u][1] - a[u][1] + dy)
+                   for u in shared]
+            med = float(np.median(err)) if err else float("inf")
+            return (f"{len(b)} of {tracker.n} slots alive, {len(shared)} "
+                    f"followed over the last frame, median motion error "
+                    f"{med:.4f} px (bars {bar} px, 50 tracks)",
+                    len(shared) >= 50 and med <= bar)
+        kernels = () if name == "PointTrackerDda" else ("klt_track",)
+        got = _family("point_tracker", f"{name} {W}x{H}, {tracker.n} slots",
+                      dev, process, accuracy, kernels)
+        if got:
+            launches[f"point_tracker {name}"] = got
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2960,6 +3361,11 @@ def main() -> int:
             phase(dev)
             clock(phase.__name__)
         launches["sparse SSD"] = phase_sparse_ssd(dev)
+        launches.update(phase_vo_families(dev, poses, frames))
+        clock("phase_vo_families")
+        launches.update(phase_motion2d(dev))
+        launches.update(phase_point_trackers(dev))
+        clock("phase_motion2d and phase_point_trackers")
         phase_breadth_cpu_vs_card(dev)
         clock("phase_sparse_ssd and phase_breadth_cpu_vs_card")
     except SmokeFailure as e:
@@ -2967,7 +3373,8 @@ def main() -> int:
         return 1
     measured["klt_track"]["max_abs_err"] = max(
         measured["klt_track"]["max_abs_err"],
-        batched["klt_track"].pop("max_abs_err"))
+        batched["klt_track"].pop("max_abs_err"), *KLT_FAMILY_ERR.values())
+    measured["klt_track"]["max_abs_err_by_family"] = KLT_FAMILY_ERR
     # each path names the kernels it runs (the sparse SSD path runs only
     # the gather); every one of them must have launched on it
     for path, counts in launches.items():

@@ -652,3 +652,191 @@ def test_new_breadth_float_paths_match_the_cpu(cuda):
     torch.testing.assert_close(g.model[0] * sign, c.model[0], rtol=0,
                                atol=1e-9)
     assert torch.equal(c.inliers, g.inliers)
+
+
+# ---- the other odometry families and 2-D motion: the card against the CPU --
+
+FAMILIES = ("depth", "dual", "quad", "direct", "mono_plane", "overhead",
+            "stitch2d", "PointTrackerKlt", "PointTrackerDda",
+            "PointTrackerCombined", "PointTrackerTwoPassKlt")
+# the hand kernels each family's card run must launch
+FAMILY_KERNELS = {"depth": ("klt_track",),
+                  "dual": ("klt_track", "window_gather"),
+                  "mono_plane": ("klt_track",), "overhead": ("klt_track",),
+                  "stitch2d": ("klt_track",), "PointTrackerKlt": ("klt_track",),
+                  "PointTrackerCombined": ("klt_track",),
+                  "PointTrackerTwoPassKlt": ("klt_track",)}
+
+
+def _same_draws(monkeypatch):
+    """RANSAC draws the same index sets on either device: the i-th call of
+    a run draws from a CPU generator seeded i.  Returns a function that
+    starts a run."""
+    from boofcv_tpu_torch.geo import robust
+    plain = robust.sample_indices
+    calls = [0]
+
+    def sample(generator, k, s, n, valid_mask=None):
+        g = torch.Generator().manual_seed(calls[0])
+        calls[0] += 1
+        vm = None if valid_mask is None else valid_mask.cpu()
+        idx = plain(g, k, s, n, vm)
+        return idx if valid_mask is None else idx.to(valid_mask.device)
+
+    monkeypatch.setattr(robust, "sample_indices", sample)
+    return lambda: calls.__setitem__(0, 0)
+
+
+def _drive_family(name: str, dev, n_frames: int = 3):
+    """Three frames of one family at 240x320 on ``dev``: (the pose or
+    motion it ends with, the track positions it ends with or None)."""
+    import chip_smoke as cs
+    from boofcv_tpu_torch.feature import point_tracker as pt
+    from boofcv_tpu_torch.sfm import (depth_vo, direct_vo, dual_track_vo,
+                                      mono_plane_vo, overhead_vo, quad_vo,
+                                      stitch2d, stereo_vo)
+    h, w = 240, 320
+    k = np.array([[240.0, 0.0, 160.0], [0.0, 240.0, 120.0], [0.0, 0.0, 1.0]])
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    pose = lambda vo: np.concatenate([a.ravel() for a in vo.camera_to_world()])
+    if name in ("depth", "dual", "quad", "direct"):
+        poses, frames = cs._scene(n_frames, k, h, w, seed=0)
+        pairs = [(on(l), on(r)) for l, r in frames]
+        depths = cs.plane_depths(poses, k, h, w)
+        vo = {"depth": lambda: depth_vo.DepthVisualOdometry(
+                  stereo_vo.StereoVoConfig(), k, h, w, device=dev),
+              "dual": lambda: dual_track_vo.DualTrackVisualOdometry(
+                  dual_track_vo.DualTrackVoConfig(), k, cs.BASELINE,
+                  device=dev),
+              "quad": lambda: quad_vo.QuadVisualOdometry(
+                  quad_vo.QuadVoConfig(), k, cs.BASELINE, device=dev),
+              "direct": lambda: direct_vo.DirectDepthVisualOdometry(
+                  k, device=dev)}[name]()
+        for (l, r), d in zip(pairs, depths):
+            assert vo.process(l, on(d) if name in ("depth", "direct") else r)
+        s = getattr(vo, "state", None)
+        if name == "depth":
+            tracks = torch.stack([s.xs, s.ys], 1)[s.alive]
+        elif name == "dual":
+            tracks = torch.stack([s.lxs, s.lys, s.rxs, s.rys], 1)[s.alive]
+        else:
+            tracks = None
+        return pose(vo), None if tracks is None else tracks.cpu().numpy()
+    if name == "mono_plane":
+        _, frames = cs.mono_plane_scene(k, h, w, n_frames)
+        vo = mono_plane_vo.MonoPlaneVisualOdometry(k, (0.0, 0.0, 1.0), 4.0,
+                                                   device=dev)
+        for f in frames:
+            assert vo.process(on(f))
+        return pose(vo), torch.stack(vo._tracks[:2], 1).cpu().numpy()
+    if name == "overhead":
+        Rp, tp, frames = cs.overhead_scene(k, h, w, n_frames)
+        vo = overhead_vo.MonoOverheadVisualOdometry(k, Rp, tp, h, w,
+                                                    device=dev)
+        for f in frames:
+            assert vo.process(on(f))
+        return (np.array(vo.plane_motion()),
+                torch.stack(vo._tracks[:2], 1).cpu().numpy())
+    if name == "stitch2d":
+        _, frames = cs.sliding_frames(h, w, n_frames, 0, 12, seed=0)
+        st = stitch2d.Stitcher(h + 40, w + 80, offset=(20.0, 20.0),
+                               device=dev)
+        for f in frames:
+            assert st.process(on(f))
+        ys, xs, valid = st._tracks
+        return (st.H_mosaic_from_frame.ravel(),
+                torch.stack([ys, xs], 1)[valid].cpu().numpy())
+    _, frames = cs.sliding_frames(h, w, n_frames, 1, 2, seed=7)
+    tracker = getattr(pt, name)(device=dev)
+    for i, f in enumerate(frames):
+        tracker.process(on(f))
+        if name == "PointTrackerTwoPassKlt":
+            tracker.second_pass(tracker.ys - 1, tracker.xs - 2)
+            tracker.finish()
+        if i == 0:
+            tracker.spawn()
+    active = tracker.active_tracks()
+    return None, np.array([(t.uid, t.x, t.y) for t in active])
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_on_card_matches_cpu(cuda, name, monkeypatch):
+    """Three frames of each front end on the card and on the CPU from the same
+    inputs and the same RANSAC index sets: the pose within 1e-5 (the plane
+    motion of the overhead VO in meters, the stitcher's homography entries)
+    and the tracks within 1e-3 px.  SURF on the card sums its float32
+    integral image in another order, which moves positions by up to 1e-2
+    px: there the pose within 1e-3 and the tracks as sets.  The card run
+    launches the hand kernels of its path."""
+    start = _same_draws(monkeypatch)
+    start()
+    cpu = _drive_family(name, torch.device("cpu"))
+    start()
+    kt.reset_launch_count()
+    wg.reset_launch_count()
+    card = _drive_family(name, cuda)
+    torch.cuda.synchronize()
+    launched = {"klt_track": kt.launch_count(),
+                "window_gather": wg.launch_count()}
+    for kernel in FAMILY_KERNELS.get(name, ()):
+        assert launched[kernel] > 0, (name, kernel)
+    surf = name in ("quad", "PointTrackerDda", "PointTrackerCombined")
+    if cpu[0] is not None:
+        np.testing.assert_allclose(card[0], cpu[0], atol=1e-3 if surf else
+                                   1e-5, rtol=0)
+    if cpu[1] is None:
+        return
+    if not surf:
+        assert card[1].shape == cpu[1].shape
+        np.testing.assert_allclose(card[1], cpu[1], atol=1e-3, rtol=0)
+        return
+    # SURF detections as sets of positions, but for 2 % of either side (a
+    # response that the prefix sums' rounding moves across the threshold,
+    # and the association that follows it)
+    a, b = card[1][:, -2:], cpu[1][:, -2:]
+    d = np.abs(a[:, None, :] - b[None, :, :]).max(-1)
+    spare = max(len(a), len(b)) // 50
+    assert len(b) > 100
+    assert (d.min(1) > 1e-2).sum() <= spare
+    assert (d.min(0) > 1e-2).sum() <= spare
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_asks_for_the_card(name, monkeypatch):
+    """Without CUDA a front end asked for the card (no ``device``) raises."""
+    from boofcv_tpu_torch.feature import point_tracker as pt
+    from boofcv_tpu_torch.sfm import (depth_vo, direct_vo, dual_track_vo,
+                                      mono_plane_vo, overhead_vo, quad_vo,
+                                      stitch2d, stereo_vo)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    k = np.eye(3)
+    make = {"depth": lambda: depth_vo.DepthVisualOdometry(
+                stereo_vo.StereoVoConfig(num_tracks=4), k, 8, 8),
+            "dual": lambda: dual_track_vo.DualTrackVisualOdometry(
+                dual_track_vo.DualTrackVoConfig(num_tracks=4), k, 0.1),
+            "quad": lambda: quad_vo.QuadVisualOdometry(
+                quad_vo.QuadVoConfig(num_features=4), k, 0.1),
+            "direct": lambda: direct_vo.DirectDepthVisualOdometry(k),
+            "mono_plane": lambda: mono_plane_vo.MonoPlaneVisualOdometry(
+                k, (0.0, 0.0, 1.0), 1.0),
+            "overhead": lambda: overhead_vo.MonoOverheadVisualOdometry(
+                k, np.eye(3), np.ones(3), 8, 8, overhead_shape=(4, 4)),
+            "stitch2d": lambda: stitch2d.Stitcher(8, 8)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make.get(name, lambda: getattr(pt, name)(max_tracks=4))()
+
+
+@pytest.mark.parametrize("name", ["PointTrackerKlt",
+                                  "PointTrackerTwoPassKlt"])
+def test_family_beyond_klt_track_limits_raises(cuda, name):
+    """A path that asks ``klt_track`` for more than it takes (a 17x17
+    template) raises on the card; it does not drop to the plain version."""
+    import chip_smoke as cs
+    from boofcv_tpu_torch.feature import point_tracker as pt
+    _, frames = cs.sliding_frames(240, 320, 2, 1, 2, seed=7)
+    frames = [torch.from_numpy(f).to(cuda) for f in frames]
+    tracker = getattr(pt, name)(template_radius=8, device=cuda)
+    tracker.process(frames[0])
+    tracker.spawn()
+    with pytest.raises(ValueError, match="template_radius 8"):
+        tracker.process(frames[1])

@@ -268,7 +268,17 @@ def test_port_imports_no_jax():
             "boofcv_tpu_torch.calib.zhang99, boofcv_tpu_torch.feature.canny, "
             "boofcv_tpu_torch.feature.sift, boofcv_tpu_torch.feature.flow, "
             "boofcv_tpu_torch.geo.epipolar, boofcv_tpu_torch.geo.robust, "
-            "boofcv_tpu_torch.geo.triangulate\n"
+            "boofcv_tpu_torch.geo.triangulate, "
+            "boofcv_tpu_torch.geo.cameras, boofcv_tpu_torch.geo.rectify, "
+            "boofcv_tpu_torch.geo.selfcalib, "
+            "boofcv_tpu_torch.feature.extract, "
+            "boofcv_tpu_torch.feature.point_tracker, "
+            "boofcv_tpu_torch.sfm.depth_vo, "
+            "boofcv_tpu_torch.sfm.dual_track_vo, "
+            "boofcv_tpu_torch.sfm.quad_vo, "
+            "boofcv_tpu_torch.sfm.mono_plane_vo, "
+            "boofcv_tpu_torch.sfm.overhead_vo, "
+            "boofcv_tpu_torch.sfm.stitch2d, boofcv_tpu_torch.sfm.direct_vo\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'boofcv_tpu.'))); print(bad)\n"
             "sys.exit(1 if bad else 0)")
