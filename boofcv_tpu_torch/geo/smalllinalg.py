@@ -76,8 +76,26 @@ def solve33(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (inv3(A) @ b[..., None])[..., 0]
 
 
+# matrices one batched eigh call takes on the card: torch 2.11's
+# cusolverDnXsyevBatched refuses 32,767 or more 3x3, 4x4 or 9x9 matrices
+# (CUSOLVER_STATUS_INVALID_VALUE at its workspace query; 24,576 pass), so
+# larger batches go in chunks, one host sync each
+_EIGH_BATCH = 1 << 14
+
+
 def _eigh_sym(A: torch.Tensor):
-    return torch.linalg.eigh(0.5 * (A + A.transpose(-1, -2)))
+    """(w, V) of the symmetric part of A [..., n, n], ascending, as
+    ``jnp.linalg.eigh`` (symmetrize_input) gives them."""
+    S = 0.5 * (A + A.transpose(-1, -2))
+    lead = S.shape[:-2]
+    count = math.prod(lead)
+    if S.device.type != "cuda" or count <= _EIGH_BATCH:
+        return torch.linalg.eigh(S)
+    flat = S.reshape((count,) + S.shape[-2:])
+    parts = [torch.linalg.eigh(flat[i:i + _EIGH_BATCH])
+             for i in range(0, count, _EIGH_BATCH)]
+    return (torch.cat([w for w, _ in parts]).reshape(S.shape[:-1]),
+            torch.cat([v for _, v in parts]).reshape(S.shape))
 
 
 def solve_spd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Bilinear pixel interpolation (port of ``boofcv_tpu/ip/interpolate.py``:
-``bilinear``, ``sample_rect_bilinear``, ``sample_rect_bilinear_multi``).
+"""Pixel interpolation (port of ``boofcv_tpu/ip/interpolate.py``:
+``nearest``, ``bilinear``, ``sample_rect_bilinear``,
+``sample_rect_bilinear_multi``).
 
 BoofCV convention: integer coordinates hit pixel centres; out-of-range
 samples clamp (EXTENDED border).  Coordinates are floored before the cast
@@ -10,6 +11,16 @@ negative coordinates.
 from __future__ import annotations
 
 import torch
+
+
+def nearest(image: torch.Tensor, ys: torch.Tensor,
+            xs: torch.Tensor) -> torch.Tensor:
+    """Nearest-pixel sample of an [H, W] (or [H, W, C]) image at float
+    coords of any matching shape (round half to even, as ``jnp.round``)."""
+    h, w = image.shape[:2]
+    yi = torch.round(ys).long().clamp(0, h - 1)
+    xi = torch.round(xs).long().clamp(0, w - 1)
+    return image[yi, xi]
 
 
 def bilinear(image: torch.Tensor, ys: torch.Tensor,

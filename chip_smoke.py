@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths (stereo VO, bundle adjustment, the
-breadth surface, the other VO families and 2-D motion) once on one CUDA
-card.
+breadth surface, the other VO families and 2-D motion, multi-view SfM) once
+on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -116,7 +116,27 @@ Phases, each printed on its own line(s); any failure exits non-zero:
     spawn ``window_gather``, and each KLT path's ``track_pyramid`` calls of
     one frame go through the kernel and the plain version on the card, held
     to phase 3's limits at the path's own levels, tracks, image, radius and
-    iteration cap.
+    iteration cap;
+16. multi-view geometry and SfM (none of it reaches a hand kernel), each
+    phase with ms per call (CUDA events around the whole call after a
+    warm-up), kernels, device busy ms and idle share of one profiled call,
+    host syncs by call site, peak memory and its bar: ``pose_graph:``
+    (1,000 poses, 999 odometry edges and 100 loop closures, 20 float64
+    iterations: final cost below 1e-3 of the first, costs never rise, two
+    solves bit-equal); ``spherical:`` (two 640x480 views onto a 1024x2048
+    canvas and the first back: within 1 grey level on 95 % of the covered
+    pixels); ``cloud:`` (radius filter and 8-NN on 16,384 points against a
+    float64 numpy brute force on 99.9 % of the queries; the voxel
+    downsample on the host); ``three_view:`` (1,000 triples, 20 %
+    outliers: focal within 10 %, 95 % of the inliers kept);
+    ``sfm_uncalibrated:`` (the orbit scene, 20 views x 1,000 points, 190
+    pairs in chunks of 64: every view, focal within 5 %, camera centres
+    within 0.01 of the span after a similarity alignment);
+    ``sfm_incremental:`` (10 views x 1,500 points, 0.3 px noise: every view,
+    centres within 0.01 of the span, more than 60 % of the points).  The
+    ``kernel:`` lines also hold ``F.grid_sample`` (nearest, border,
+    align_corners) against the plain gather at each of its shapes and time
+    it as the library call.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -377,20 +397,30 @@ def phase_kernel(dev) -> dict:
     plain_ms = cuda_ms(plain, 200)
     dev_ms = device_ms(kern, 50, "window_gather_kernel")
     plain_dev_ms = device_ms(plain, 50)
+    lib = grid_sample_call(img, oy, ox, wy, wx)
+    _check_grid_sample(f"{name} origins=[512]", lib, plain())
+    lib_ms = cuda_ms(lib, 200)
+    lib_dev_ms = device_ms(lib, 50)
     print(f"kernel: window_gather {name} n=512 24x16 kernel_ms={ms:.6f} "
           f"plain_ms={plain_ms:.6f} (CUDA events, 200 back-to-back calls) "
           f"device_ms={dev_ms:.6f} plain_device_ms={plain_dev_ms:.6f} "
-          f"(profiler) library_ms=None (no single PyTorch call)")
+          f"(profiler) library_ms={lib_ms:.6f} library_device_ms="
+          f"{lib_dev_ms:.6f} (F.grid_sample nearest, border, align_corners, "
+          f"on a prebuilt grid)")
     # the two shapes the single-stream main path launches today (the sparse
     # SAD of a spawn or bootstrap)
     sad = {}
     for sname, h, w, oy, ox, wy, wx in (cases[4], cases[5]):
         oy, ox = oy.contiguous(), ox.contiguous()
+        lib = grid_sample_call(imgs[(h, w)], oy, ox, wy, wx)
+        _check_grid_sample(f"{sname} origins=[512]", lib,
+                           wg.gather_windows_reference(imgs[(h, w)], oy, ox,
+                                                       wy, wx))
         t = _times(lambda: wg.gather_windows_cuda(imgs[(h, w)], oy, ox, wy,
                                                   wx),
                    lambda: wg.gather_windows_reference(imgs[(h, w)], oy, ox,
                                                        wy, wx),
-                   "window_gather_kernel", 200)
+                   "window_gather_kernel", 200, library=lib)
         sad[sname] = _print_times(
             f"window_gather {sname} origins=[512] window={wy}x{wx}",
             bounds[sname], t)
@@ -412,7 +442,8 @@ def phase_kernel(dev) -> dict:
                 "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
                 "plain_device_ms": plain_dev_ms,
                 "bound_ms": bounds[name]["bound_ms"],
-                "bound_by": bounds[name]["bound_by"], "library_ms": None}}
+                "bound_by": bounds[name]["bound_by"], "library_ms": lib_ms,
+                "library_device_ms": lib_dev_ms}}
 
 
 def _klt_case_scene(dev, left0, left1, jitter=None):
@@ -597,7 +628,9 @@ def phase_klt_kernel(dev, frames) -> dict:
         print(f"kernel: klt_track {name} kernel_ms={ms:.6f} (CUDA events, "
               f"200 back-to-back calls) plain_ms={plain_ms:.6f} (20 calls) "
               f"device_ms={dev_ms:.6f} plain_device_ms={plain_dev_ms:.6f} "
-              f"(profiler) library_ms=None (no single PyTorch call)")
+              f"(profiler) library_ms=None (no single PyTorch call tracks a "
+              f"pyramid: each track's Gauss-Newton steps hang on its own "
+              f"last step, level after level)")
         out.update({"ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
                     "plain_device_ms": plain_dev_ms,
                     "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
@@ -882,23 +915,68 @@ def _profile_step(tag, step, state, lefts, rights) -> None:
                       "klt_track_kernel")
 
 
-def _times(kern, plain, kernel_name: str, plain_reps: int) -> dict:
+def _times(kern, plain, kernel_name: str, plain_reps: int,
+           library=None) -> dict:
     """ms over 200 back-to-back calls (CUDA events) and device ms (profiler)
-    of a kernel's wrapper, and the same of its plain version."""
-    return {"ms": cuda_ms(kern, 200), "plain_ms": cuda_ms(plain, plain_reps),
-            "device_ms": device_ms(kern, 50, kernel_name),
-            "plain_device_ms": device_ms(plain, max(plain_reps // 4, 2)),
-            "library_ms": None}
+    of a kernel's wrapper, and the same of its plain version and of the one
+    PyTorch call ``library`` that computes the same function (if any)."""
+    t = {"ms": cuda_ms(kern, 200), "plain_ms": cuda_ms(plain, plain_reps),
+         "device_ms": device_ms(kern, 50, kernel_name),
+         "plain_device_ms": device_ms(plain, max(plain_reps // 4, 2)),
+         "library_ms": None}
+    if library is not None:
+        t["library_ms"] = cuda_ms(library, 200)
+        t["library_device_ms"] = device_ms(library, 50)
+    return t
 
 
 def _print_times(what: str, bnd: dict, t: dict) -> dict:
+    lib = ("library_ms=None (no single PyTorch call)"
+           if t["library_ms"] is None else
+           f"library_ms={t['library_ms']:.6f} library_device_ms="
+           f"{t['library_device_ms']:.6f} (F.grid_sample nearest, border, "
+           f"align_corners, on a prebuilt grid)")
     print(f"kernel: {what} bytes={bnd['bytes']} flops={bnd['flops']} "
           f"bound_ms={bnd['bound_ms']:.6f} bound_by={bnd['bound_by']} "
           f"device_ms={t['device_ms']:.6f} (profiler) kernel_ms={t['ms']:.6f} "
           f"(CUDA events, 200 back-to-back calls) plain_ms="
           f"{t['plain_ms']:.6f} plain_device_ms={t['plain_device_ms']:.6f} "
-          f"library_ms=None (no single PyTorch call)")
+          f"{lib}")
     return {**t, "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"]}
+
+
+def grid_sample_call(img, oy, ox, wy: int, wx: int):
+    """The window gather as one PyTorch call, ``F.grid_sample(mode=
+    "nearest", padding_mode="border", align_corners=True)`` at the windows'
+    integer pixel centres: a closure over the image [h, w] (or [B, h, w])
+    and a grid built here from the origins [N] (or [B, N]), returning
+    [..., N, wy, wx].  Border padding is the gather's clamp."""
+    import torch.nn.functional as F
+    h, w = img.shape[-2:]
+    lead = oy.shape[:-1]
+    b = int(np.prod(lead)) if lead else 1
+    n = oy.shape[-1]
+    ys = oy.float()[..., :, None] + torch.arange(wy, device=oy.device)
+    xs = ox.float()[..., :, None] + torch.arange(wx, device=ox.device)
+    gy = (ys * (2.0 / (h - 1)) - 1.0)[..., :, :, None].expand(
+        lead + (n, wy, wx))
+    gx = (xs * (2.0 / (w - 1)) - 1.0)[..., :, None, :].expand(
+        lead + (n, wy, wx))
+    grid = torch.stack([gx, gy], dim=-1).reshape(b, n * wy, wx, 2)
+    inp = img.reshape(b, 1, h, w)
+    return lambda: F.grid_sample(
+        inp, grid, mode="nearest", padding_mode="border",
+        align_corners=True).reshape(lead + (n, wy, wx))
+
+
+def _check_grid_sample(what: str, call, want) -> None:
+    got = call()
+    torch.cuda.synchronize()
+    eq = torch.equal(got, want)
+    print(f"kernel: window_gather {what}: F.grid_sample(nearest, border, "
+          f"align_corners) equals the plain version={eq} max_abs_err="
+          f"{float((got - want).abs().max())}")
+    check(eq, f"grid_sample differs from the plain gather at {what}")
 
 
 def phase_batched_kernels(dev, frames) -> dict:
@@ -946,10 +1024,14 @@ def phase_batched_kernels(dev, frames) -> dict:
         oyb, oxb = oy[:b].contiguous(), ox[:b].contiguous()
         bnd = bound(touched_bytes(H, W, oyb, oxb, wy, wx)
                     + 4 * b * 512 * wy * wx + 8 * b * 512, 0)
+        lib = grid_sample_call(imgs, oyb, oxb, wy, wx)
+        _check_grid_sample(f"batched {name} origins=[{b}, 512]", lib,
+                           wg.gather_windows_reference(imgs, oyb, oxb, wy,
+                                                       wx))
         t = _times(lambda: wg.gather_windows_cuda(imgs, oyb, oxb, wy, wx),
                    lambda: wg.gather_windows_reference(imgs, oyb, oxb, wy,
                                                        wx),
-                   "window_gather_kernel", 50)
+                   "window_gather_kernel", 50, library=lib)
         out["window_gather"][f"B{b}_{name}"] = _print_times(
             f"window_gather batched {name} origins=[{b}, 512] on {b} frames",
             bnd, t)
@@ -3321,6 +3403,472 @@ def phase_point_trackers(dev) -> dict:
     return launches
 
 
+# ---- multi-view geometry and SfM -----------------------------------------
+
+MV_VIEWS, MV_POINTS = 10, 1500    # sfm_incremental
+S2_VIEWS, S2_POINTS = 20, 1000    # sfm_uncalibrated
+S2_FOCAL = 480.0
+TV_TRIPLES, TV_OUTLIERS = 1000, 0.2   # three_view
+PG_POSES, PG_LOOPS = 1000, 100    # pose_graph
+EQUI_SHAPE = (1024, 2048)         # spherical
+N_CLOUD, CLOUD_K = 16384, 8       # cloud
+
+
+def _rodrigues(w) -> np.ndarray:
+    from boofcv_tpu_torch.geo import se3
+    return se3.exp_so3(torch.from_numpy(np.asarray(w, np.float64))).numpy()
+
+
+def _features(desc, idx, xs, ys, rng, desc_noise):
+    from boofcv_tpu_torch.sfm.reconstruction import ImageFeatures
+    return ImageFeatures(ys=ys, xs=xs, scales=np.ones(len(idx)),
+                         desc=desc[idx] + rng.normal(0, desc_noise,
+                                                     (len(idx), 64)),
+                         valid=np.ones(len(idx), bool))
+
+
+def incremental_scene(n_views=MV_VIEWS, n_points=MV_POINTS, k=K, h=H, w=W,
+                      noise=0.3, seed=0):
+    """``tests/test_reconstruction.py``'s ``synthetic_views``: known points,
+    one unit descriptor each (observed with 0.01 noise), cameras creeping
+    sideways with small rotations, ``noise`` px on every observation."""
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-2, 2, n_points),
+                    rng.uniform(-1.5, 1.5, n_points),
+                    rng.uniform(5, 9, n_points)], 1)
+    poses = []
+    for v in range(n_views):
+        R = _rodrigues(rng.normal(0, 0.02, 3))
+        poses.append((R, -R @ np.array([0.5 * v, 0.05 * v, 0.1 * v])))
+    desc = rng.normal(0, 1, (n_points, 64))
+    desc /= np.linalg.norm(desc, axis=1, keepdims=True)
+    feats = []
+    for R, t in poses:
+        Xc = pts @ R.T + t
+        proj = (Xc / Xc[:, 2:]) @ k.T
+        u, v_ = proj[:, 0], proj[:, 1]
+        idx = np.nonzero((Xc[:, 2] > 0) & (u >= 5) & (u < w - 5)
+                         & (v_ >= 5) & (v_ < h - 5))[0]
+        feats.append(_features(desc, idx,
+                               u[idx] + rng.normal(0, noise, idx.size),
+                               v_[idx] + rng.normal(0, noise, idx.size),
+                               rng, 0.01))
+    return poses, feats
+
+
+def orbit_scene(n_views=S2_VIEWS, n_points=S2_POINTS, h=H, w=W, f=S2_FOCAL,
+                seed=3):
+    """``tests/test_structure2.py``'s ``orbit_scene``: an arc of cameras
+    around a point cloud with jittered look-at targets, 0.15 px noise."""
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-3, 3, n_points),
+                    rng.uniform(-2, 2, n_points),
+                    rng.uniform(-3, 3, n_points)], 1)
+    desc = rng.normal(0, 1, (n_points, 64))
+    desc /= np.linalg.norm(desc, axis=1, keepdims=True)
+    Kf = np.array([[f, 0, (w - 1) / 2], [0, f, (h - 1) / 2], [0, 0, 1.0]])
+    poses, feats = [], []
+    for v in range(n_views):
+        ang = 0.9 * v / n_views * np.pi
+        c = np.array([10 * np.sin(ang), 0.5 * np.sin(3 * ang),
+                      -10 * np.cos(ang)])
+        tgt = rng.uniform(-1.5, 1.5, 3)
+        z = (tgt - c) / np.linalg.norm(tgt - c)
+        x = np.cross([0, 1, 0], z)
+        x /= np.linalg.norm(x)
+        R = np.stack([x, np.cross(z, x), z])
+        t = -R @ c
+        poses.append((R, t))
+        pc = pts @ R.T + t
+        pr = (pc / pc[:, 2:]) @ Kf.T
+        idx = np.nonzero(((pr[:, :2] > 6) & (pr[:, :2] < [w - 6, h - 6])
+                          ).all(1) & (pc[:, 2] > 0.5))[0]
+        idx = idx[rng.permutation(len(idx))]
+        feats.append(_features(desc, idx,
+                               pr[idx, 0] + rng.normal(0, 0.15, len(idx)),
+                               pr[idx, 1] + rng.normal(0, 0.15, len(idx)),
+                               rng, 0.02))
+    return poses, feats
+
+
+def three_view_scene(n=TV_TRIPLES, outliers=TV_OUTLIERS, f=400.0, h=H, w=W,
+                     seed=1):
+    """``tests/test_three_view.py``'s ``make_scene`` with its outlier test's
+    corruption: the first ``outliers`` of the view-3 points moved 20-60 px.
+    Returns (triples, true-inlier mask)."""
+    rng = np.random.default_rng(seed)
+    Kf = np.array([[f, 0, (w - 1) / 2], [0, f, (h - 1) / 2], [0, 0, 1.0]])
+    X = np.concatenate([rng.uniform(-2, 2, (n, 2)),
+                        rng.uniform(5, 9, (n, 1))], 1)
+    views = []
+    for v in range(3):
+        R = _rodrigues(rng.normal(0, 0.04, 3))
+        px = (X @ R.T + np.array([0.5 * v, 0.05 * v, 0.02 * v])) @ Kf.T
+        views.append(px[:, :2] / px[:, 2:])
+    bad = int(outliers * n)
+    views[2][:bad] += rng.uniform(20, 60, (bad, 2))
+    good = np.arange(n) >= bad
+    return views, good
+
+
+def pose_graph_scene(n=PG_POSES, loops=PG_LOOPS, seed=1):
+    """``tests/test_reconstruction.py``'s pose-graph scene at size: a path
+    that circles (radius 10 m, one lap in ~126 poses, bobbing 0.5 m) with
+    exact odometry between neighbours and ``loops`` exact closures between
+    poses one to three laps apart; every pose but the first perturbed by
+    0.02 rad and 0.1 m."""
+    rng = np.random.default_rng(seed)
+    Rs, ts = [], []
+    for i in range(n):
+        R = _rodrigues([0.0, 0.05 * i, 0.0])
+        c = np.array([10 * np.sin(0.05 * i), 0.5 * np.sin(0.3 * i),
+                      10 * np.cos(0.05 * i)])
+        Rs.append(R)
+        ts.append(-R @ c)
+    pairs = [(i, i + 1) for i in range(n - 1)]
+    lap = int(round(2 * np.pi / 0.05))
+    starts = rng.choice(max(n - 3 * lap, loops), loops, replace=False)
+    pairs += [(int(i), int(min(i + lap * rng.integers(1, 4), n - 1)))
+              for i in starts]
+    edges = []
+    for i, j in pairs:
+        Rij = Rs[j] @ Rs[i].T
+        edges.append((i, j, Rij, ts[j] - Rij @ ts[i]))
+    Rp = np.stack([Rs[0]] + [_rodrigues(rng.normal(0, 0.02, 3)) @ R
+                             for R in Rs[1:]])
+    tp = np.stack([ts[0]] + [t + rng.normal(0, 0.1, 3) for t in ts[1:]])
+    return Rp, tp, edges
+
+
+def _world_texture(d):
+    """Grey level of the 360 scene in direction d [..., 3] (unit): smooth
+    bands in longitude and latitude, 8 to 248."""
+    lon = np.arctan2(d[..., 0], d[..., 2])
+    lat = np.arcsin(np.clip(d[..., 1], -1, 1))
+    return (128 + 70 * np.sin(12 * lon) * np.cos(10 * lat)
+            + 50 * np.sin(7 * d[..., 0] + 5 * d[..., 1] - 3 * d[..., 2]))
+
+
+def spherical_scene(h=H, w=W, f=480.0):
+    """Two 640x480 pinhole views (camera-to-world yaw 0 and 0.9 rad) of the
+    360 texture, each pixel the texture at its ray."""
+    from boofcv_tpu_torch.geo import cameras
+    cam = cameras.CameraPinhole(fx=f, fy=f, cx=(w - 1) / 2, cy=(h - 1) / 2,
+                                width=w, height=h)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    d = np.stack([(xx - cam.cx) / f, (yy - cam.cy) / f, np.ones_like(xx)],
+                 -1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    Rs = [_rodrigues([0.0, a, 0.0]) for a in (0.0, 0.9)]
+    views = [_world_texture(d @ R.T).astype(np.float32) for R in Rs]
+    return cam, Rs, views
+
+
+def cloud_scene(n=N_CLOUD, seed=0):
+    """16,384 points uniform in a 10 m cube, 1 % of them outliers spread
+    over a 110 m one, and as many query points in the cube."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(0, 10, (n, 3))
+    pts[:n // 100] = rng.uniform(-50, 60, (n // 100, 3))
+    return pts, rng.uniform(0, 10, (n, 3))
+
+
+def np_knn(queries, points, k, exclude_self=False, chunk=1024):
+    """Plain float64 numpy brute force: (indices [Q, k], distances [Q, k])
+    of each query's k nearest points, nearest first."""
+    idx = np.empty((len(queries), k), np.int64)
+    dist = np.empty((len(queries), k))
+    p2 = np.sum(points * points, 1)
+    for lo in range(0, len(queries), chunk):
+        q = queries[lo:lo + chunk]
+        d2 = np.sum(q * q, 1)[:, None] - 2.0 * q @ points.T + p2[None]
+        if exclude_self:
+            d2[np.arange(len(q)), lo + np.arange(len(q))] = np.inf
+        part = np.argpartition(d2, k, axis=1)[:, :k]
+        dp = np.take_along_axis(d2, part, 1)
+        order = np.argsort(dp, axis=1)
+        idx[lo:lo + chunk] = np.take_along_axis(part, order, 1)
+        dist[lo:lo + chunk] = np.sqrt(np.maximum(
+            np.take_along_axis(dp, order, 1), 0.0))
+    return idx, dist
+
+
+def _centre_error(poses_gt, poses_est) -> tuple:
+    """(largest camera-centre error after a similarity (Umeyama) alignment,
+    the trajectory's span)."""
+    gt = np.stack([-R.T @ t for R, t in poses_gt])
+    est = np.stack([-R.T @ t for R, t in poses_est])
+    mu_g, mu_e = gt.mean(0), est.mean(0)
+    gg, ee = gt - mu_g, est - mu_e
+    U, S, Vt = np.linalg.svd(ee.T @ gg)
+    D = np.eye(3)
+    D[2, 2] = np.sign(np.linalg.det(U @ Vt))
+    R_al = (U @ D @ Vt).T
+    s = np.trace(np.diag(S) @ D) / (ee ** 2).sum()
+    res = gt - (s * (est @ R_al.T) + (mu_g - s * R_al @ mu_e))
+    span = np.linalg.norm(gt[:, None] - gt[None], axis=-1).max()
+    return float(np.linalg.norm(res, axis=1).max()), float(span)
+
+
+class _StageClock:
+    """Wraps module functions so that each call adds its host wall time,
+    up to a synchronize after it, to its stage; ``with`` restores them."""
+
+    def __init__(self, targets):
+        self.targets = targets          # (module, function name, stage)
+        self.ms = collections.defaultdict(float)
+        self.calls = collections.Counter()
+
+    def __enter__(self):
+        self.saved = []
+        for mod, name, stage in self.targets:
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+
+            def timed(*a, _fn=fn, _stage=stage, **kw):
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.ms[_stage] += 1e3 * (time.perf_counter() - t0)
+                self.calls[_stage] += 1
+                return out
+            setattr(mod, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def _multiview(tag: str, what: str, fn, dev, reps: int,
+               long_call: bool = False, stages=()) -> tuple:
+    """Run ``fn`` on the card as a multi-view phase measures it and print
+    its line: host syncs by call site and peak memory of the first call
+    (the warm-up), ms per call (CUDA events around the whole call, ``reps``
+    after the warm-up, each stage of ``stages`` timed inside them with a
+    synchronize after it), kernels, device busy ms and idle share of one
+    profiled call (``long_call``: the device alone).  Returns (the first
+    call's result, median ms)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, syncs = _count_sync_warnings(fn)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    with _StageClock(stages) as clock:
+        ms = _solve_ms(fn, reps, warm_up=False)
+    n_kernels, busy_ms, _ = _profile_call(fn, cpu=not long_call)
+    med = float(np.median(ms))
+    parts = "; ".join(f"{k} {v / reps:.3f} ms in {clock.calls[k] // reps} "
+                      f"calls" for k, v in clock.ms.items())
+    print(f"{tag}: {what}: ms per call (CUDA events around the whole call, "
+          f"{reps} after a warm-up)={[round(m, 3) for m in ms]} "
+          f"median={med:.3f}; one profiled call launches {n_kernels} "
+          f"kernels, device busy {busy_ms:.3f} ms, idle share "
+          f"{1 - busy_ms / med:.4f} of the median call; host syncs="
+          f"{sum(syncs.values())} {dict(sorted(syncs.items()))}; peak "
+          f"device memory MiB={peak:.1f}"
+          + (f"; stages a call (host wall, synchronize after each): {parts}"
+             if parts else ""))
+    check(n_kernels > 0, f"{tag}: nothing ran on the device")
+    return out, med
+
+
+def phase_sfm_incremental(dev) -> None:
+    """``sfm_incremental:`` ``build_pairwise_graph`` (Nister RANSAC, 256
+    hypotheses, the pairs 16 to a chunk) + ``reconstruct_incremental`` (PnP
+    RANSAC a view, 15 BA iterations) over 10 views of 1,500 points, K of a
+    640x480 camera (fx 480), 0.3 px noise."""
+    from boofcv_tpu_torch.geo import ba, robust
+    from boofcv_tpu_torch.sfm import reconstruction
+    poses, feats = incremental_scene(MV_VIEWS, MV_POINTS)
+    views = list(range(MV_VIEWS))
+
+    def run():
+        graph = reconstruction.build_pairwise_graph(
+            views, K, detect=lambda i: feats[i], device=dev)
+        return graph, reconstruction.reconstruct_incremental(graph, K,
+                                                             device=dev)
+    (graph, scene), _ = _multiview(
+        "sfm_incremental", f"{MV_VIEWS} views x {MV_POINTS} points, "
+        "256 hypotheses, 15 BA iterations", run, dev, reps=3,
+        long_call=True, stages=(
+            (robust, "ransac_essential", "ransac_essential"),
+            (robust, "ransac_pnp", "ransac_pnp"),
+            (reconstruction, "match_features", "match_features"),
+            (reconstruction, "_tri2", "triangulate"),
+            (ba, "optimize", "BA")))
+    err, span = _centre_error(poses, [scene["poses"].get(v, (np.eye(3),
+                                                             np.zeros(3)))
+                                      for v in views])
+    n_pts = len(scene["points"])
+    print(f"sfm_incremental: accuracy: {len(graph.edges)} edges, "
+          f"{len(scene['views'])}/{MV_VIEWS} views registered; camera-centre "
+          f"error after similarity alignment {err:.6f} of span {span:.6f} = "
+          f"{err / span:.6f} (bar 0.01); {n_pts} points = "
+          f"{n_pts / MV_POINTS:.4f} of {MV_POINTS} (bar 0.6); final BA cost "
+          f"{float(scene['ba_info']['final_cost']):.6e}")
+    check(scene["views"] == views and err < 0.01 * span
+          and n_pts > 0.6 * MV_POINTS,
+          "sfm_incremental: a view unregistered, centres or points off")
+
+
+def phase_sfm_uncalibrated(dev) -> None:
+    """``sfm_uncalibrated:`` ``reconstruct_uncalibrated`` on the orbit
+    scene: 20 views x 1,000 points, 640x480, f = 480, every pair a
+    candidate, F + H RANSAC in chunks of 64 pairs."""
+    from boofcv_tpu_torch.geo import ba
+    from boofcv_tpu_torch.sfm import reconstruction, structure2
+    poses, feats = orbit_scene(S2_VIEWS, S2_POINTS)
+    imgs = [np.zeros((H, W), np.float32)] * S2_VIEWS
+
+    def run():
+        it = iter(feats)
+        return structure2.reconstruct_uncalibrated(
+            imgs, detect=lambda im: next(it), device=dev)
+    scene, _ = _multiview(
+        "sfm_uncalibrated", f"{S2_VIEWS} views x {S2_POINTS} points, "
+        f"{S2_VIEWS * (S2_VIEWS - 1) // 2} pairs in chunks of 64", run, dev,
+        reps=3, long_call=True, stages=(
+            (structure2, "generate_pairwise_graph", "pairwise graph"),
+            (structure2, "_batched_fh_ransac", "F+H RANSAC chunk"),
+            (structure2, "focal_from_fundamentals", "focal sweep"),
+            (structure2, "_metric_graph_from_edges", "metric graph"),
+            (reconstruction, "reconstruct_incremental", "incremental"),
+            (ba, "optimize", "BA")))
+    views = list(range(S2_VIEWS))
+    f_est = scene["K"][0, 0]
+    ferr = abs(f_est - S2_FOCAL) / S2_FOCAL
+    err, span = _centre_error(poses, [scene["poses"].get(v, (np.eye(3),
+                                                             np.zeros(3)))
+                                      for v in views])
+    print(f"sfm_uncalibrated: accuracy: {len(scene['graph'].edges)} edges, "
+          f"{len(scene['poses'])}/{S2_VIEWS} views registered; focal "
+          f"{f_est:.4f} (true {S2_FOCAL}, error {ferr:.6f}, bar 0.05); "
+          f"camera-centre error {err:.6f} of span {span:.6f} = "
+          f"{err / span:.6f} (bar 0.01); {len(scene['points'])} points")
+    check(sorted(scene["poses"]) == views and ferr < 0.05
+          and err < 0.01 * span,
+          "sfm_uncalibrated: a view unregistered, focal or centres off")
+
+
+def phase_three_view(dev) -> None:
+    """``three_view:`` ``estimate_metric_scene`` on 1,000 triples with 20 %
+    outliers, 640x480, f 400, 256 hypotheses."""
+    from boofcv_tpu_torch.geo import ba, selfcalib
+    from boofcv_tpu_torch.sfm import three_view
+    views, good = three_view_scene(TV_TRIPLES, TV_OUTLIERS)
+    res, _ = _multiview(
+        "three_view", f"{TV_TRIPLES} triples, {int(TV_OUTLIERS * 100)} % "
+        "outliers, 256 hypotheses", lambda: three_view.estimate_metric_scene(
+            *views, (H, W), device=dev), dev, reps=3, long_call=True,
+        stages=((three_view, "ransac_trifocal", "ransac_trifocal"),
+                (selfcalib, "self_calibrate_dual_quadratic",
+                 "dual quadratic"),
+                (selfcalib, "guess_and_check_focus", "focus sweep"),
+                (ba, "optimize", "BA")))
+    f_est = 0.5 * (res.K[0, 0] + res.K[1, 1])
+    ferr = abs(f_est - 400.0) / 400.0
+    kept = float(res.inliers[good].mean())
+    out = float(res.inliers[~good].mean())
+    print(f"three_view: accuracy: focal {f_est:.4f} (true 400, error "
+          f"{ferr:.6f}, bar 0.1); true inliers kept {kept:.4f} (bar 0.95), "
+          f"outliers accepted {out:.4f}; reprojection RMSE "
+          f"{res.reproj_rmse:.3e} (normalized)")
+    check(ferr < 0.1 and kept >= 0.95, "three_view: focal or inliers off")
+
+
+def phase_pose_graph(dev) -> None:
+    """``pose_graph:`` ``optimize`` on 1,000 poses (an odometry chain and
+    100 loop closures), 20 iterations, float64: one [6000, 6000] dense
+    Cholesky solve an iteration."""
+    from boofcv_tpu_torch.sfm import pose_graph
+    Rp, tp, edges = pose_graph_scene(PG_POSES, PG_LOOPS)
+    graph = pose_graph.make_graph(Rp, tp, edges, device=dev)
+    r0 = pose_graph.residuals(graph)
+    c_init = float(torch.sum(graph.weight[:, None] * r0 * r0))
+    (g1, costs), _ = _multiview(
+        "pose_graph", f"{PG_POSES} poses, {len(edges)} edges ("
+        f"{PG_POSES - 1} odometry, {len(edges) - PG_POSES + 1} loop "
+        "closures), 20 iterations, float64",
+        lambda: pose_graph.optimize(graph, iterations=20), dev, reps=5)
+    g2, costs2 = pose_graph.optimize(graph, iterations=20)
+    same = (torch.equal(g1.R, g2.R) and torch.equal(g1.t, g2.t)
+            and torch.equal(costs, costs2))
+    c = costs.cpu().numpy()
+    rises = int((np.diff(np.concatenate([[c_init], c])) > 0).sum())
+    print(f"pose_graph: accuracy: cost {c_init:.6e} -> {c[-1]:.6e} "
+          f"({c[-1] / c_init:.3e} of the initial, bar 1e-3); costs rise "
+          f"{rises} times (bar 0); two solves bit-equal={same}")
+    check(bool(np.isfinite(c).all()) and c[-1] < 1e-3 * c_init
+          and rises == 0 and same, "pose_graph: cost, monotony or "
+                                   "repeatability off")
+
+
+def phase_spherical(dev) -> None:
+    """``spherical:`` ``multi_camera_to_equi`` of two 640x480 pinhole views
+    into a 1024x2048 canvas, then ``equi_to_pinhole`` of the first view
+    back out."""
+    from boofcv_tpu_torch.geo import spherical
+    cam, Rs, views = spherical_scene()
+    imgs = [torch.from_numpy(v).to(dev) for v in views]
+
+    def run():
+        canvas = spherical.multi_camera_to_equi(imgs, [cam, cam], Rs,
+                                                EQUI_SHAPE)
+        return canvas, spherical.equi_to_pinhole(canvas, cam, Rs[0], (H, W))
+    (canvas, back), _ = _multiview(
+        "spherical", f"2 views {W}x{H} -> {EQUI_SHAPE[1]}x{EQUI_SHAPE[0]} "
+        f"-> {W}x{H}", run, dev, reps=5)
+    # covered: pixels whose every canvas tap holds a blended sample
+    cov = (canvas > 0).to(torch.float32)
+    covered = spherical.equi_to_pinhole(cov, cam, Rs[0], (H, W)) > 0.999
+    err = (back - imgs[0]).abs()[covered].cpu().numpy()
+    share = float((err <= 1.0).mean())
+    print(f"spherical: accuracy: canvas coverage "
+          f"{float(cov.mean()):.4f}; {int(covered.sum())} of {H * W} pixels "
+          f"covered; round trip within 1 grey level on {share:.6f} of them "
+          f"(bar 0.95), median error {float(np.median(err)):.4f}, max "
+          f"{float(err.max()):.4f}")
+    check(share >= 0.95 and int(covered.sum()) > 0.5 * H * W,
+          "spherical: round trip off")
+
+
+def phase_cloud(dev) -> None:
+    """``cloud:`` ``filter_radius_outliers`` (k = 8) and
+    ``nearest_neighbors`` (k = 8) on 16,384 points (the [N, N] float32
+    distance matrix is 1 GiB), against a float64 numpy brute force; and
+    ``downsample_voxel`` on the host."""
+    from boofcv_tpu_torch.geo import cloud
+    pts, queries = cloud_scene(N_CLOUD)
+    p_dev = torch.from_numpy(pts).to(dev)
+    q_dev = torch.from_numpy(queries).to(dev)
+
+    def run():
+        keep = cloud.filter_radius_outliers(p_dev, CLOUD_K, 1.0)
+        return keep, cloud.nearest_neighbors(q_dev, p_dev, CLOUD_K)
+    (keep, (idx, dist)), _ = _multiview(
+        "cloud", f"filter_radius_outliers + nearest_neighbors, {N_CLOUD} "
+        f"points, k={CLOUD_K}", run, dev, reps=5)
+    t0 = time.perf_counter()
+    nn_i, nn_d = np_knn(queries, pts, CLOUD_K)
+    self_i, self_d = np_knn(pts, pts, CLOUD_K, exclude_self=True)
+    np_ms = 1e3 * (time.perf_counter() - t0)
+    idx = idx.cpu().numpy()
+    same = np.mean([set(a) == set(b) for a, b in zip(idx, nn_i)])
+    dgap = float(np.abs(np.sort(dist.cpu().numpy(), 1) - nn_d).max())
+    keep_np = self_d.mean(axis=1) <= 1.0
+    agree = float((keep.cpu().numpy() == keep_np).mean())
+    vox_ms, vox = _host_ms(lambda: cloud.downsample_voxel(pts, 0.5))
+    print(f"cloud: accuracy: nearest_neighbors index sets equal the float64 "
+          f"numpy brute force on {same:.6f} of {N_CLOUD} queries (bar 0.999),"
+          f" distances within {dgap:.3e}; filter_radius_outliers keeps "
+          f"{int(keep.sum())}, its mask equals numpy's on {agree:.6f} of the "
+          f"points (bar 0.999); numpy brute force on the host (a CPU figure) "
+          f"{np_ms:.1f} ms; downsample_voxel(0.5) on the host {vox_ms:.3f} "
+          f"ms, {len(vox)} voxels")
+    check(same >= 0.999 and agree >= 0.999, "cloud: neighbours off")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3368,6 +3916,11 @@ def main() -> int:
         clock("phase_motion2d and phase_point_trackers")
         phase_breadth_cpu_vs_card(dev)
         clock("phase_sparse_ssd and phase_breadth_cpu_vs_card")
+        for phase in (phase_pose_graph, phase_spherical, phase_cloud,
+                      phase_three_view, phase_sfm_uncalibrated,
+                      phase_sfm_incremental):
+            phase(dev)
+            clock(phase.__name__)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
