@@ -1,6 +1,7 @@
 """Perspective-n-Point pose estimation (port of ``boofcv_tpu/geo/pnp.py``:
 ``rigid_from_three_points``, ``p3p_grunert``, ``p3p_finsterwalder``,
-``reprojection_error_sq``, ``_gn_pose_loop``, ``gauss_newton_pose``).
+``reprojection_error_sq``, ``_gn_pose_loop``, ``gauss_newton_pose``,
+``refine_pnp``).
 
 Reference analog: boofcv-geo alg/geo/pose/P3PGrunert.java,
 P3PFinsterwalder.java and the nonlinear refiner
@@ -342,3 +343,13 @@ def gauss_newton_pose(R, t, world, obs, weights=None, iterations: int = 10,
                              min(polish_iterations, iterations),
                              damping, torch.float64, 1e-14)
     return R.to(torch.float64), t.to(torch.float64)
+
+
+def refine_pnp(R, t, world, obs, iterations: int = 10, damping: float = 1e-8):
+    """Gauss-Newton refinement of (R, t) minimizing reprojection error.
+
+    Replaces the reference's ddogleg LM refiner (PnPRefineRodrigues).
+    world: [N, 3], obs: [N, 2] normalized coords.  Runs a fixed number of
+    iterations; each iteration is one 6x6 solve."""
+    return gauss_newton_pose(R, t, world, obs, iterations=iterations,
+                             damping=damping)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths (stereo VO, bundle adjustment, the
-breadth surface, the other VO families and 2-D motion, multi-view SfM) once
-on one CUDA card.
+breadth surface, the other VO families and 2-D motion, multi-view SfM,
+fiducials, QR codes and calibration targets) once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -10,7 +10,9 @@ Phases, each printed on its own line(s); any failure exits non-zero:
 1. environment: card name and power limit, torch / CUDA versions, nvcc,
    TF32 switches; fails without a CUDA device;
 2. build: both kernels (``window_gather``, ``klt_track``) from
-   ``boofcv_tpu_torch/kernels/csrc``, one ``nvcc`` each, started together;
+   ``boofcv_tpu_torch/kernels/csrc``, one ``nvcc`` each, and the native
+   host library (``boofcv_tpu_torch/native/ccl.cpp``, ``g++``), started
+   together;
 3. each kernel vs its plain version on the card at the main path's shapes.
    ``window_gather`` (KLT 512 windows of 24x16 on every pyramid level of
    640x480, sparse-SAD strips 7x102 and 7x7 with negative columns and rows
@@ -136,7 +138,21 @@ Phases, each printed on its own line(s); any failure exits non-zero:
     centres within 0.01 of the span, more than 60 % of the points).  The
     ``kernel:`` lines also hold ``F.grid_sample`` (nearest, border,
     align_corners) against the plain gather at each of its shapes and time
-    it as the library call.
+    it as the library call;
+17. recognition (none of it reaches a hand kernel), each call measured as
+    in 16: ``binary:`` a 1280x720 frame of shapes and a chessboard (Otsu,
+    threshold, point noise, ``label_blobs`` on the card: equal to the
+    native CCL in both numberings, its sweeps and syncs; native
+    ``contours_with_holes`` equal to the Python tracer); ``fiducial:`` a
+    1280x720 frame of 8 binary and 2 image markers at all four quarter
+    turns under perspective, noise sigma 4 (every marker found, corner error
+    median below 1 px and max below ``FID_MAX_CORNER_PX``, ``estimate_pose``
+    reprojection RMS below 1 px, card = CPU); ``qr:`` codes of versions 2,
+    10 and 25 (level M, 4 px modules) under a homography in 1280x720
+    frames, noise sigma 6 (each decoded exactly, card = CPU);
+    ``calib_targets:`` 12 640x480 views each of a 9x7 chessboard (auto with
+    an occluded view, and known size), a square grid, a circle grid and a
+    hexagonal circle grid, then Zhang99 from each (``CAL_BARS``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -321,15 +337,29 @@ def phase_environment():
           and not torch.backends.cudnn.allow_tf32, "TF32 is enabled")
 
 
+def _timed_native_build() -> float:
+    """Seconds to build (if needed) and load the native host library."""
+    from boofcv_tpu_torch import native
+    t0 = time.perf_counter()
+    native.library()
+    return time.perf_counter() - t0
+
+
 def phase_build():
-    """Both kernels, one nvcc each, started together."""
+    """Both kernels, one nvcc each, and the native host library (g++),
+    started together."""
+    from boofcv_tpu_torch import native
     from boofcv_tpu_torch.kernels import _nvcc, klt_track, window_gather
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(window_gather._kernel_lib),
-                  pool.submit(klt_track._kernel_lib)]:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        futures = [pool.submit(window_gather._kernel_lib),
+                   pool.submit(klt_track._kernel_lib),
+                   pool.submit(_timed_native_build)]
+        for f in futures:
             f.result()
     wall = time.perf_counter() - t0
+    print(f"build: native host library (g++ {' '.join(native.FLAGS)}) "
+          f"built and loaded in {futures[2].result():.3f}s")
     for name in KERNELS:
         rec = _nvcc.build_record(name)
         print(f"build: {name} built={rec['built']} "
@@ -337,7 +367,8 @@ def phase_build():
         for line in rec["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"build: {name} ptxas: {line.strip()}")
-    print(f"build: both kernels built and loaded in {wall:.3f}s")
+    print(f"build: both kernels and the native library built and loaded in "
+          f"{wall:.3f}s")
 
 
 def phase_kernel(dev) -> dict:
@@ -3869,6 +3900,583 @@ def phase_cloud(dev) -> None:
     check(same >= 0.999 and agree >= 0.999, "cloud: neighbours off")
 
 
+# ---- recognition: binary images, fiducials, QR codes, calibration targets --
+
+REC_H, REC_W = 720, 1280          # binary:, fiducial:, qr:
+REC_K = np.array([[1000.0, 0.0, REC_W / 2], [0.0, 1000.0, REC_H / 2],
+                  [0.0, 0.0, 1.0]])
+FID_SIDE = 0.12                   # marker side (m) of the fiducial scene
+# the polygon fit returns contour pixels as corners: ~0.7 px inside a true
+# corner, and a few px along an edge where the corner's pixels are blunted
+FID_MAX_CORNER_PX = 3.5
+QR_VERSIONS = (2, 10, 25)         # qr: level M, 4 px modules
+CAL_VIEWS = 12                    # calib_targets: views a target, 640x480
+CAL_K = np.array([[600.0, 0.0, W / 2], [0.0, 600.0, H / 2], [0.0, 0.0, 1.0]])
+# each calibration target's extent (u0, v0, u1, v1) in plane units
+# per target: a share of each view's true points found within a distance
+# (px), and Zhang99's focal (relative) and RMSE (px) bars: the JAX tests'
+# (tests/test_chessboard_auto.py, tests/test_calib_targets.py), except the
+# square grid's, whose corners are pixels of the traced contour (median 1.0
+# px off the true corner, up to 2.6: its JAX test allows 2.5 px and an RMSE
+# of 1.0 on a milder scene)
+CAL_BARS = {"chessboard": (1.0, 0.95, 0.02, 0.5),
+            "square_grid": (2.5, 0.9, 0.03, 1.25),
+            "circle_grid": (1.5, 0.95, 0.02, 0.5),
+            "hex_grid": (1.5, 0.95, 0.02, 0.5)}
+CAL_EXTENTS = {"chessboard": (0.0, 0.0, 10.0, 8.0),
+               "square_grid": (0.0, 0.0, 10.0, 7.0),
+               "circle_grid": (0.0, 0.0, 8.0, 6.0),
+               "hex_grid": (0.0, 0.0, 6.5, 4.9)}
+
+
+def _render_plane(frame, Hm, shade, extent, ss: int = 4) -> None:
+    """Draw a planar pattern into ``frame`` in place.  ``Hm`` maps plane
+    points (u, v, 1) to pixel-centre image coordinates; ``shade(u, v)`` is
+    the pattern's value, NaN off the pattern (the frame shows through).
+    Each pixel of the pattern's bounding box averages ss x ss samples at
+    its own sub-pixel centres."""
+    h, w = frame.shape
+    u0, v0, u1, v1 = extent
+    c = np.array([[u0, v0, 1], [u1, v0, 1], [u1, v1, 1], [u0, v1, 1.0]]) \
+        @ Hm.T
+    c = c[:, :2] / c[:, 2:]
+    x0, y0 = np.maximum(np.floor(c.min(0)).astype(int) - 1, 0)
+    x1, y1 = np.minimum(np.ceil(c.max(0)).astype(int) + 2, [w, h])
+    off = (np.arange(ss) + 0.5) / ss - 0.5
+    ys = (np.arange(y0, y1)[:, None] + off).reshape(-1)
+    xs = (np.arange(x0, x1)[:, None] + off).reshape(-1)
+    X, Y = np.meshgrid(xs, ys)
+    q = np.stack([X, Y, np.ones_like(X)], -1) @ np.linalg.inv(Hm).T
+    val = shade(q[..., 0] / q[..., 2], q[..., 1] / q[..., 2])
+    base = np.repeat(np.repeat(frame[y0:y1, x0:x1], ss, 0), ss, 1)
+    val = np.where(np.isnan(val), base, val)
+    frame[y0:y1, x0:x1] = val.reshape(y1 - y0, ss, x1 - x0, ss).mean((1, 3))
+
+
+def _apply_h(Hm, uv) -> np.ndarray:
+    p = np.c_[np.asarray(uv, np.float64), np.ones(len(uv))] @ Hm.T
+    return p[:, :2] / p[:, 2:]
+
+
+def _plane_view(k, R, t, centre) -> np.ndarray:
+    """Homography plane (u, v) -> pixels of a plane posed by (R, t) with
+    its point ``centre`` at t."""
+    return k @ np.c_[R[:, 0], R[:, 1], t - R[:, :2] @ np.asarray(centre)]
+
+
+def _rot_z(a) -> np.ndarray:
+    return np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                     [0, 0, 1.0]])
+
+
+def binary_scene(h=None, w=None, seed=0) -> np.ndarray:
+    """A ``h x w`` frame of dark shapes on a lit ramp, noise sigma 4: a
+    10 x 8 chessboard (its dark squares one 8-connected blob: the labeling's
+    longest path) and 24 shapes beside it (rings, squares with two holes,
+    discs, bars)."""
+    h = REC_H if h is None else h
+    w = REC_W if w is None else w
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    img = 170.0 + 40.0 * xx / w
+    sq = max(h // 18, 4)
+    by, bx = (yy - h // 10) // sq, (xx - w // 16) // sq
+    board = (by >= 0) & (by < 8) & (bx >= 0) & (bx < 10) & ((by + bx) % 2 == 0)
+    img[board] = 35.0
+    cell = h / 6                     # 6 x 4 shapes right of the board
+    for i in range(24):
+        cy = (i // 4 + 0.5) * cell + rng.uniform(-0.1, 0.1) * cell
+        cx = 0.62 * w + (i % 4 + 0.5) * cell + rng.uniform(-0.1, 0.1) * cell
+        r = rng.uniform(0.2, 0.4) * cell
+        d = np.hypot(yy - cy, xx - cx)
+        kind = i % 4
+        if kind == 0:                                   # ring
+            img[(d < r) & (d > 0.5 * r)] = 40.0
+        elif kind == 1:                                 # disc
+            img[d < r] = 40.0
+        elif kind == 2:                                 # square, two holes
+            m = (np.abs(yy - cy) < r) & (np.abs(xx - cx) < r)
+            hole = (np.abs(yy - cy) < 0.3 * r) & (np.abs(np.abs(xx - cx)
+                                                          - 0.5 * r)
+                                                  < 0.25 * r)
+            img[m & ~hole] = 40.0
+        else:                                           # bar
+            img[(np.abs(yy - cy) < 0.2 * r) & (np.abs(xx - cx) < r)] = 40.0
+    return (img + rng.normal(0, 4, img.shape)).astype(np.float32)
+
+
+def _smooth_pattern(rng, n=32) -> np.ndarray:
+    """A picture for an image fiducial: smoothed noise, 17-237."""
+    p = rng.normal(0, 1, (n, n))
+    for _ in range(3):
+        p = (np.roll(p, 1, 0) + p + np.roll(p, -1, 0)) / 3
+        p = (np.roll(p, 1, 1) + p + np.roll(p, -1, 1)) / 3
+    return (127 + 110 * p / np.abs(p).max()).astype(np.float32)
+
+
+def fiducial_scene(seed=0) -> tuple:
+    """The 1280x720 fiducial frame: 8 binary markers (ids spread to
+    ``max_marker_id()``) and 2 image markers, side ``FID_SIDE`` m at 0.85-1.05
+    m, each turned a quarter turn more than the last (and up to 12 degrees
+    more), tilted up to 26 degrees about x and y (a perspective warp),
+    noise sigma 4.  Returns (frame, [(kind, id, plane->image homography
+    of the unit square, R, t)], patterns)."""
+    from boofcv_tpu_torch.recognition import fiducial_square as fid
+    rng = np.random.default_rng(seed)
+    frame = np.full((REC_H, REC_W), 200.0)
+    ids = [0, 1, 777, 1234, 2500, 3333, 4001, fid.max_marker_id()]
+    patterns = [_smooth_pattern(rng) for _ in range(2)]
+    markers = []
+    for i in range(10):
+        cx, cy = 160 + 240 * (i % 5), 190 + 340 * (i // 5)
+        z = rng.uniform(0.85, 1.05)
+        tilt = rng.uniform(-0.45, 0.45, 2)
+        R = _rodrigues([tilt[0], tilt[1], 0.0]) @ _rot_z(
+            np.pi / 2 * (i % 4) + np.radians(rng.uniform(-12, 12)))
+        t = np.array([(cx - REC_K[0, 2]) * z / REC_K[0, 0],
+                      (cy - REC_K[1, 2]) * z / REC_K[1, 1], z])
+        # unit square (u, v) -> the marker plane at (u - 1/2, v - 1/2) side
+        Hm = _plane_view(REC_K, R * np.array([FID_SIDE, FID_SIDE, 1.0]), t,
+                         (0.5, 0.5))
+        if i < 8:
+            cells = fid.encode_marker(ids[i], 1)[2:-2, 2:-2]
+            n = len(cells)
+
+            def shade(u, v, cells=cells, n=n):
+                inside = (u >= 0) & (u < 1) & (v >= 0) & (v < 1)
+                iu = np.clip(np.floor(u * n), 0, n - 1).astype(int)
+                iv = np.clip(np.floor(v * n), 0, n - 1).astype(int)
+                return np.where(inside, cells[iv, iu], np.nan)
+            markers.append(("binary", ids[i], Hm, R, t))
+        else:
+            p = patterns[i - 8]
+
+            def shade(u, v, p=p):
+                inside = (u >= 0) & (u < 1) & (v >= 0) & (v < 1)
+                inner = (u >= 0.25) & (u < 0.75) & (v >= 0.25) & (v < 0.75)
+                n = len(p)
+                iu = np.clip(np.floor((u - 0.25) * 2 * n), 0, n - 1)
+                iv = np.clip(np.floor((v - 0.25) * 2 * n), 0, n - 1)
+                val = np.where(inner, p[iv.astype(int), iu.astype(int)], 0.0)
+                return np.where(inside, val, np.nan)
+            markers.append(("image", i - 8, Hm, R, t))
+        _render_plane(frame, Hm, shade, (0.0, 0.0, 1.0, 1.0))
+    frame += rng.normal(0, 4, frame.shape)
+    return frame.astype(np.float32), markers, patterns
+
+
+def qr_scene(version: int, seed=0) -> tuple:
+    """One code of ``version`` at level M, 4 px modules, in a 1280x720
+    frame under a homography (turned, slightly projective), noise sigma 6.
+    Returns (frame, text)."""
+    from boofcv_tpu_torch.recognition.qr import code as qr
+    rng = np.random.default_rng(seed + version)
+    cap = qr.data_capacity_bytes(version, "M")
+    text = (f"QR version {version} level M on the card / " * 60)[
+        :int(0.8 * cap)]
+    mat = qr.encode(text, version=version, level="M")
+    n = mat.shape[0]
+    a = np.radians(rng.uniform(-15, 15))
+    p = rng.uniform(-3e-5, 3e-5, 2)
+    # module coords centred on the code -> pixels: 4 px a module, turned
+    # by a, a small projective row, centred in the frame
+    Hm = np.array([[1, 0, REC_W / 2], [0, 1, REC_H / 2], [0, 0, 1.0]]) \
+        @ np.diag([4.0, 4.0, 1.0]) @ _rot_z(a) \
+        @ np.array([[1, 0, 0], [0, 1, 0], [p[0], p[1], 1.0]]) \
+        @ np.array([[1, 0, -n / 2], [0, 1, -n / 2], [0, 0, 1.0]])
+    frame = np.full((REC_H, REC_W), 235.0)
+
+    def shade(u, v):
+        inside = (u >= 0) & (u < n) & (v >= 0) & (v < n)
+        iu = np.clip(np.floor(u), 0, n - 1).astype(int)
+        iv = np.clip(np.floor(v), 0, n - 1).astype(int)
+        return np.where(inside, np.where(mat[iv, iu], 20.0, 235.0), np.nan)
+    _render_plane(frame, Hm, shade, (0.0, 0.0, float(n), float(n)))
+    frame += rng.normal(0, 6, frame.shape)
+    return frame.astype(np.float32), text
+
+
+def _calib_points(target: str) -> np.ndarray:
+    """[N, 2] plane points a target's detector reports, in plane units."""
+    if target == "chessboard":
+        return np.array([(c, r) for r in range(1, 8) for c in range(1, 10)],
+                        np.float64)
+    if target == "square_grid":
+        return np.array([(c * 1.5 + b, r * 1.5 + a) for r in range(5)
+                         for a in range(2) for c in range(7)
+                         for b in range(2)], np.float64)
+    if target == "circle_grid":
+        return np.array([(c + 0.5, r + 0.5) for r in range(6)
+                         for c in range(8)], np.float64)
+    return np.array([(0.25 + 0.5 * c, 0.25 + 0.55 * r) for r in range(9)
+                     for c in range(13) if (r + c) % 2 == 0], np.float64)
+
+
+def _calib_shade(target: str):
+    pts = _calib_points(target)
+
+    def chess(u, v):
+        inside = (u >= 0) & (u < 10) & (v >= 0) & (v < 8)
+        par = (np.floor(u) + np.floor(v)) % 2 == 0
+        return np.where(inside, np.where(par, 30.0, 220.0), np.nan)
+
+    def squares(u, v):
+        fu, fv = np.mod(u, 1.5), np.mod(v, 1.5)
+        on = (fu < 1) & (fv < 1) & (u >= 0) & (u < 10.5) & (v >= 0) \
+            & (v < 7.5)
+        return np.where(on, 20.0, np.nan)
+
+    def circles(radius):
+        def f(u, v):
+            out = np.full(u.shape, np.nan)
+            for cu, cv in pts:
+                near = (np.abs(u - cu) < radius) & (np.abs(v - cv) < radius)
+                if near.any():
+                    out[near & ((u - cu) ** 2 + (v - cv) ** 2
+                                < radius ** 2)] = 20.0
+            return out
+        return f
+    return {"chessboard": chess, "square_grid": squares,
+            "circle_grid": circles(0.3), "hex_grid": circles(0.16)}[target]
+
+
+def calib_scene(target: str, occlude: bool = False) -> tuple:
+    """``CAL_VIEWS`` 640x480 views of ``target`` by the camera ``CAL_K``: the
+    target's centre 14-18 plane units ahead, tilted up to 35 degrees,
+    rolled up to 10; background 128 for the chessboard, 235 for the dark
+    targets.  ``occlude``: view 1 loses about a tenth of its points under a
+    grey disc.  Returns (views, [V, N, 2] true points, plane points)."""
+    extent = CAL_EXTENTS[target]
+    centre = ((extent[0] + extent[2]) / 2, (extent[1] + extent[3]) / 2)
+    tilts = [(0.0, 0.0), (0.35, 0.05), (-0.35, 0.0), (0.05, 0.45),
+             (0.0, -0.45), (0.3, 0.3), (-0.3, 0.3), (0.3, -0.3),
+             (-0.3, -0.3), (0.55, 0.1), (0.1, -0.6), (-0.45, -0.2)]
+    plane = _calib_points(target)
+    scale = 10.0 / (extent[2] - extent[0])    # every target ~10 units wide
+    views, truth = [], []
+    for v, (ax, ay) in enumerate(tilts[:CAL_VIEWS]):
+        R = _rodrigues([ax, ay, 0.0]) @ _rot_z(np.radians(10 * np.sin(v)))
+        t = np.array([0.6 * np.cos(v), 0.5 * np.sin(2 * v),
+                      (14.0 + 4.0 * (v % 3) / 2) / scale])
+        Hm = _plane_view(CAL_K, R, t, centre)
+        img = np.full((H, W), 128.0 if target == "chessboard" else 235.0)
+        _render_plane(img, Hm, _calib_shade(target), extent, ss=3)
+        pts = _apply_h(Hm, plane)
+        if occlude and v == 1:      # a disc 1.3 squares wide, near the middle
+            c = pts[len(pts) // 2 - 2]
+            r = 1.3 * np.linalg.norm(pts[len(pts) // 2 - 1] - c)
+            yy, xx = np.mgrid[0:H, 0:W]
+            img[np.hypot(yy - c[1], xx - c[0]) < r] = 128.0
+        views.append(img.astype(np.float32))
+        truth.append(pts)
+    return views, np.stack(truth), plane
+
+
+def phase_binary(dev) -> None:
+    """``binary:`` a 1280x720 frame (``binary_scene``): Otsu, threshold,
+    point-noise removal and ``label_blobs`` on the card; its labels against
+    the native CCL (compact numbering and the raw minimum-pixel numbering),
+    its sweeps and syncs; the native ``contours_with_holes`` against the
+    Python tracer."""
+    from boofcv_tpu_torch import native
+    from boofcv_tpu_torch.ip import binary, threshold
+    img = torch.from_numpy(binary_scene()).to(dev)
+
+    def run():
+        t = threshold.compute_otsu(img)
+        bw = binary.remove_point_noise(threshold.threshold(img, t))
+        return t, bw, binary.label_blobs(bw)
+    (t, bw, lab), _ = _multiview(
+        "binary", f"compute_otsu + threshold + remove_point_noise + "
+        f"label_blobs, {REC_W}x{REC_H}, a sync every {binary.CHECK_EVERY} "
+        "sweeps", run, dev, reps=5)
+    sweeps = collections.Counter()
+    pass_fn = binary._min_label_pass
+
+    def counting(*a):
+        step = pass_fn(*a)
+
+        def counted(x):
+            sweeps[binary.CHECK_EVERY] += 1
+            return step(x)
+        return counted
+    every = binary.CHECK_EVERY
+    binary._min_label_pass = counting
+    try:
+        binary.label_blobs(bw)
+        binary.CHECK_EVERY = 1
+        lab1, syncs1 = _count_sync_warnings(lambda: binary.label_blobs(bw))
+    finally:
+        binary._min_label_pass = pass_fn
+        binary.CHECK_EVERY = every
+    bw_h = bw.cpu().numpy()
+    lab_h = lab.cpu().numpy()
+    t0 = time.perf_counter()
+    ccl, n = native.ccl(bw_h)
+    ccl_ms = 1e3 * (time.perf_counter() - t0)
+    compact = binary.relabel_compact(lab_h)
+    # the raw numbering: a blob's label is its first raster pixel's index + 1
+    first = np.unique(ccl.ravel(), return_index=True)[1]
+    raw = np.concatenate([[0], first[1:] + 1])[ccl]
+    same = (np.array_equal(compact, ccl) and np.array_equal(lab_h, raw)
+            and torch.equal(lab1, lab))
+    t0 = time.perf_counter()
+    cont = binary.contours_with_holes(bw_h)
+    nat_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ref = binary.contours_with_holes_reference(bw_h)
+    py_ms = 1e3 * (time.perf_counter() - t0)
+
+    def key(blobs):
+        return [(b["label"], b["external"].tobytes(),
+                 tuple(c.tobytes() for c in b["internal"])) for b in blobs]
+    same_cont = key(cont) == key(ref)
+    n_holes = sum(len(b["internal"]) for b in cont)
+    print(f"binary: accuracy: Otsu {float(t):.6f}, {int(bw.sum())} dark "
+          f"pixels, {n} blobs; label_blobs on the card = native CCL "
+          f"(compact ids, raw minimum-pixel ids, one check a sweep)={same}; "
+          f"sweeps to the fixpoint {sweeps[1]} (the reference's loop: "
+          f"{sweeps[1] - 1} trips, {sum(syncs1.values())} syncs), "
+          f"{sweeps[every]} sweeps with a check every {every}; native CCL "
+          f"on the host {ccl_ms:.3f} ms; native contours_with_holes "
+          f"{nat_ms:.3f} ms = the Python tracer ({py_ms:.1f} ms, a CPU "
+          f"figure)={same_cont}: {len(cont)} external, {n_holes} internal "
+          f"contours")
+    check(same and same_cont and n >= 25 and n_holes >= 18,
+          "binary: labels or contours differ")
+
+
+def phase_fiducial(dev) -> None:
+    """``fiducial:`` ``detect`` and ``detect_image`` on the 1280x720 frame
+    of ``fiducial_scene``; ``estimate_pose`` of every binary marker."""
+    from boofcv_tpu_torch.recognition import fiducial_square as fid
+    frame, markers, patterns = fiducial_scene()
+    img = torch.from_numpy(frame).to(dev)
+    dets, _ = _multiview("fiducial", f"detect, {REC_W}x{REC_H}, 8 binary + "
+                         "2 image markers", lambda: fid.detect(img), dev,
+                         reps=5)
+    dets_img, _ = _multiview("fiducial", "detect_image, 2 patterns",
+                             lambda: fid.detect_image(img, patterns), dev,
+                             reps=5)
+    same_cpu = (_same_detection(dets, fid.detect(frame, device="cpu"))
+                and _same_detection(dets_img, fid.detect_image(
+                    frame, patterns, device="cpu")))
+    unit = np.array([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0], [0.0, 1.0]])
+    errs, found, reproj, rot_err = [], set(), [], []
+    flip = np.diag([-1.0, -1.0, 1.0])        # a half turn about the normal
+    for kind, mid, Hm, R, t in markers:
+        pool = dets if kind == "binary" else dets_img
+        truth = _apply_h(Hm, unit)
+        hit = [d for d in pool if d["id"] == mid and np.linalg.norm(
+            d["corners"].mean(0) - truth.mean(0)) < 10]
+        if not hit:
+            continue
+        found.add((kind, mid))
+        c = hit[0]["corners"]
+        if kind == "binary":
+            # ordered from the marker's top left, except that a marker read
+            # at an odd quarter turn starts at its bottom right (the
+            # reference's roll, ROADMAP queue 3)
+            odd = hit[0]["rotation"] % 2 == 1
+            errs += list(np.linalg.norm(np.roll(c, 2 * odd, 0) - truth,
+                                        axis=1))
+            Re, te = fid.estimate_pose(c, FID_SIDE, REC_K, device=dev)
+            s = FID_SIDE / 2
+            world = np.array([[-s, -s, 0], [s, -s, 0], [s, s, 0],
+                              [-s, s, 0.0]])
+            pc = world @ Re.T + te
+            proj = (pc / pc[:, 2:]) @ REC_K.T
+            reproj += list(np.linalg.norm(proj[:, :2] - c, axis=1))
+            Re = Re @ flip if odd else Re
+            rot_err.append(np.degrees(np.arccos(np.clip(
+                (np.trace(Re.T @ R) - 1) / 2, -1, 1))))
+        else:                        # as a set (the rotation is the pattern's)
+            d = np.linalg.norm(c[:, None] - truth[None], axis=-1)
+            errs += list(d.min(1))
+    extra = len(dets) + len(dets_img) - len(found)
+    _multiview("fiducial", "estimate_pose of one marker (DLT + 15 GN "
+               "iterations)", lambda: fid.estimate_pose(
+                   dets[0]["corners"], FID_SIDE, REC_K, device=dev), dev,
+               reps=5)
+    rots = sorted({d["rotation"] for d in dets})
+    med_err = float(np.median(errs)) if errs else np.inf
+    max_err = float(np.max(errs)) if errs else np.inf
+    rms = float(np.sqrt(np.mean(np.square(reproj)))) if reproj else np.inf
+    print(f"fiducial: accuracy: {len(found)}/10 markers found (ids "
+          f"{sorted(m for k, m in found if k == 'binary')}, patterns "
+          f"{sorted(m for k, m in found if k == 'image')}), {extra} other "
+          f"detections; rotations seen {rots}; corner error against the "
+          f"true corners of the 10 markers median {med_err:.4f} px (bar 1), "
+          f"max {max_err:.4f} px (bar {FID_MAX_CORNER_PX}: each corner is a "
+          f"pixel of the traced contour); estimate_pose reprojection RMS "
+          f"{rms:.4f} px (bar 1), max "
+          f"{max(reproj, default=np.inf):.4f} px; rotation against the true "
+          f"pose max {max(rot_err, default=np.inf):.3f} deg; detections on "
+          f"the card = on the CPU (1e-4 px)={same_cpu}")
+    check(len(found) == 10 and same_cpu and med_err < 1.0
+          and max_err < FID_MAX_CORNER_PX and rms < 1.0,
+          "fiducial: a marker missed, or corners or pose off")
+
+
+def phase_qr(dev) -> None:
+    """``qr:`` ``detect_and_decode`` of one code of each of
+    ``QR_VERSIONS`` in its own 1280x720 frame (``qr_scene``)."""
+    from boofcv_tpu_torch.recognition.qr import detector
+    ok = []
+    for version in QR_VERSIONS:
+        frame, text = qr_scene(version)
+        img = torch.from_numpy(frame).to(dev)
+        (data, info), _ = _multiview(
+            "qr", f"detect_and_decode, version {version} level M, "
+            f"{len(text)} bytes, {REC_W}x{REC_H}",
+            lambda: detector.detect_and_decode(img), dev, reps=5)
+        good = data is not None and data.decode() == text
+        same_cpu = _same_detection((data, info), detector.detect_and_decode(
+            frame, device="cpu"))
+        ok.append(good and same_cpu)
+        print(f"qr: accuracy: version {version}: decoded exactly={good}, "
+              f"version read {info.get('version')}, errors corrected "
+              f"{info.get('errors_corrected')}, {info.get('error', '')}; "
+              f"result on the card = on the CPU={same_cpu}")
+    check(all(ok), "qr: a code not decoded exactly, or card and CPU differ")
+
+
+def _match_truth(found, truth, radius=2.0) -> tuple:
+    """(obs [N, 2], mask [N]): each truth point's nearest found point when
+    within ``radius`` px."""
+    obs = np.zeros_like(truth)
+    mask = np.zeros(len(truth), bool)
+    if found is not None and len(found):
+        d = np.linalg.norm(truth[:, None] - found[None], axis=-1)
+        j = d.argmin(1)
+        mask = d[np.arange(len(truth)), j] < radius
+        obs[mask] = found[j[mask]]
+    return obs, mask
+
+
+def phase_calib_targets(dev) -> None:
+    """``calib_targets:`` 12 640x480 views each of a 9x7 chessboard (auto,
+    with view 1 partly occluded, and known size), a 5x7 square grid, a 6x8
+    circle grid and a 9x13 hexagonal circle grid, each detector on every
+    view, then ``calibrate_mono_planar`` from each target's points.
+
+    Bars, per target (``CAL_BARS``): the share of a view's true points
+    found within 0.5 px is printed; the bar holds the share within the
+    distance the target's JAX test allows (chessboard 1 px, square grid 2.5,
+    circles 1.5) to 0.95 (square grid 0.9; 0.85 on the occluded view), and
+    Zhang99 to a focal and an RMSE bar.  View 3's detection on the card
+    equals the CPU's within 1e-4 px.  On the chessboard the shares count the
+    corners the x-corner detection returned (the nonmax drops a corner
+    whose two top pixels differ by less than its tie ramp: ROADMAP queue
+    3), and the known-size detector, which needs every corner, must detect
+    exactly the views where none was dropped; every other view must be
+    detected."""
+    from boofcv_tpu_torch.calib import zhang99
+    from boofcv_tpu_torch.recognition import calib_targets, chessboard
+    runs = [("chessboard_auto", "chessboard", True,
+             lambda im: chessboard.detect_chessboard_auto(im)),
+            ("chessboard", "chessboard", False,
+             lambda im: chessboard.detect_chessboard(im, 7, 9)),
+            ("square_grid", "square_grid", False,
+             lambda im: calib_targets.detect_square_grid(im, 5, 7)),
+            ("circle_grid", "circle_grid", False,
+             lambda im: calib_targets.detect_circle_regular_grid(im, 6, 8)),
+            ("hex_grid", "hex_grid", False,
+             lambda im: calib_targets.detect_circle_hexagonal_grid(im, 9,
+                                                                   13))]
+    bad = []
+    for name, target, occlude, detect in runs:
+        px, share_bar, f_bar, rmse_bar = CAL_BARS[target]
+        views, truth, plane = calib_scene(target, occlude)
+        imgs = [torch.from_numpy(v).to(dev) for v in views]
+        out3, _ = _multiview("calib_targets", f"{name}: one {W}x{H} view",
+                             lambda: detect(imgs[3]), dev, reps=3)
+        same_cpu = _same_detection(out3, detect(torch.from_numpy(views[3])))
+        present = np.ones(truth.shape[:2], bool)
+        if target == "chessboard":
+            present = np.stack([_corners_detected(im, tr)
+                                for im, tr in zip(imgs, truth)])
+        obs = np.zeros_like(truth)
+        mask = np.zeros(truth.shape[:2], bool)
+        near, close, missed = [], [], []
+        for v, im in enumerate(imgs):
+            out = detect(im)
+            if out is None:
+                missed.append(v)
+                continue
+            pts = out[0][out[1]] if isinstance(out, tuple) else out
+            obs[v], mask[v] = _match_truth(pts, truth[v], max(2.0, px))
+            err = np.linalg.norm(obs[v] - truth[v], axis=1)
+            close.append(float(np.mean((mask[v] & (err < 0.5))[present[v]])))
+            near.append(float(np.mean((mask[v] & (err < px))[present[v]])))
+        if name == "chessboard":
+            must = [v for v in range(len(imgs)) if present[v].all()]
+            ok_views = sorted(set(range(len(imgs))) - set(missed)) == must
+        else:
+            ok_views = not missed
+        err = np.linalg.norm(obs - truth, axis=-1)[mask]
+        used = [v for v in range(len(imgs)) if v not in missed]
+        fx_e = fy_e = rmse = np.inf
+        if len(used) >= 3:
+            res = zhang99.calibrate_mono_planar(
+                plane, obs[used], obs_mask=mask[used], device=dev)
+            fx_e = abs(res.K[0, 0] - CAL_K[0, 0]) / CAL_K[0, 0]
+            fy_e = abs(res.K[1, 1] - CAL_K[1, 1]) / CAL_K[1, 1]
+            rmse = res.reprojection_rmse
+        share_bars = [0.85 if occlude and v == 1 else share_bar
+                      for v in used]
+        ok = (ok_views and same_cpu
+              and all(s >= b for s, b in zip(near, share_bars))
+              and fx_e < f_bar and fy_e < f_bar and rmse < rmse_bar)
+        among = (f"true corners among the x-corner detections by view "
+                 f"{present.sum(1).tolist()} of {truth.shape[1]}; share of "
+                 "them" if target == "chessboard" else
+                 f"share of the {truth.shape[1]} true points")
+        print(f"calib_targets: accuracy: {name}: {len(used)}/{len(imgs)} "
+              f"views detected (missed {missed}); {among} found within 0.5 "
+              f"px, by "
+              f"detected view {[round(c, 4) for c in close]}; within {px} px"
+              f" {[round(c, 4) for c in near]} (bar {share_bar}"
+              f"{', 0.85 on the occluded view 1' if occlude else ''}); error "
+              f"of the matched points median "
+              f"{np.median(err) if err.size else np.inf:.4f} max "
+              f"{err.max() if err.size else np.inf:.4f} px; Zhang99 from "
+              f"{len(used)} views: fx error {fx_e:.6f}, fy {fy_e:.6f} (bars "
+              f"{f_bar}), RMSE {rmse:.4f} px (bar {rmse_bar}); view 3 on "
+              f"the card = on the CPU (1e-4 px)={same_cpu}")
+        if not ok:
+            bad.append(name)
+    check(not bad, f"calib_targets: {bad} off")
+
+
+def _same_detection(a, b, atol=1e-4) -> bool:
+    """Two detector outputs agree: the same structure (None, tuples, lists,
+    dicts), integers and masks equal, coordinates within ``atol``."""
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same_detection(x, y, atol)
+                                        for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_detection(a[k], b[k], atol)
+                                            for k in a)
+    if isinstance(a, (bytes, str)):
+        return a == b
+    x, y = np.asarray(a), np.asarray(b)
+    if x.shape != y.shape:
+        return False
+    if x.dtype.kind in "biu" and y.dtype.kind in "biu":
+        return bool(np.array_equal(x, y))
+    return bool(np.allclose(x, y, rtol=0, atol=atol))
+
+
+def _corners_detected(img, truth) -> np.ndarray:
+    """[N] bool: the true corners with an x-corner detection within 1 px."""
+    from boofcv_tpu_torch.recognition import chessboard
+    ys, xs, valid = chessboard.detect_corners(img, 300)
+    pts = np.stack([xs[valid], ys[valid]], 1)
+    return np.linalg.norm(truth[:, None] - pts[None], axis=-1).min(1) < 1.0
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3918,7 +4526,8 @@ def main() -> int:
         clock("phase_sparse_ssd and phase_breadth_cpu_vs_card")
         for phase in (phase_pose_graph, phase_spherical, phase_cloud,
                       phase_three_view, phase_sfm_uncalibrated,
-                      phase_sfm_incremental):
+                      phase_sfm_incremental, phase_binary, phase_fiducial,
+                      phase_qr, phase_calib_targets):
             phase(dev)
             clock(phase.__name__)
     except SmokeFailure as e:

@@ -998,3 +998,78 @@ def test_spherical_and_cloud_on_card_match_cpu(cuda):
                                                     device="cpu"),
                        cloud.filter_radius_outliers(pts, 8, 1.0,
                                                     device=cuda).cpu())
+
+
+# ---- recognition: binary images, fiducials, QR codes, calibration targets
+
+def test_label_blobs_on_card_equals_native_ccl(cuda):
+    """``label_blobs`` on the card (a sync every ``CHECK_EVERY`` sweeps)
+    equals the native CCL, compact and raw numbering, and the CPU's."""
+    import chip_smoke as cs
+    from boofcv_tpu_torch import native
+    from boofcv_tpu_torch.ip import binary, threshold
+    img = torch.from_numpy(cs.binary_scene(240, 320))
+    for eight in (True, False):
+        bw = threshold.threshold(img, threshold.compute_otsu(img))
+        lab = binary.label_blobs(bw.to(cuda), eight).cpu()
+        assert torch.equal(lab, binary.label_blobs(bw, eight))
+        ccl, _ = native.ccl(bw.numpy(), eight)
+        np.testing.assert_array_equal(binary.relabel_compact(lab), ccl)
+        thin = binary.thin(bw.to(cuda)).cpu()
+        assert torch.equal(thin, binary.thin(bw))
+
+
+def test_fiducial_detectors_on_card_equal_cpu(cuda):
+    """``detect``, ``detect_image`` and ``estimate_pose`` on the card and
+    the CPU: ids and rotations equal, corners within 1e-4 px, poses 1e-9."""
+    import chip_smoke as cs
+    from boofcv_tpu_torch.recognition import fiducial_square as fid
+    frame, _, patterns = cs.fiducial_scene()
+    out = {}
+    for dev in ("cpu", cuda):
+        img = torch.from_numpy(frame).to(dev)
+        dets = fid.detect(img)
+        out[str(dev)] = (dets, fid.detect_image(img, patterns),
+                         fid.estimate_pose(dets[0]["corners"], cs.FID_SIDE,
+                                           cs.REC_K, device=dev))
+    assert len(out["cpu"][0]) == 8 and len(out["cpu"][1]) == 2
+    assert cs._same_detection(out["cpu"][:2], out[str(cuda)][:2], 1e-4)
+    assert cs._same_detection(out["cpu"][2], out[str(cuda)][2], 1e-9)
+
+
+@pytest.mark.parametrize("version", [2, 10])
+def test_qr_on_card_equals_cpu(cuda, version):
+    import chip_smoke as cs
+    from boofcv_tpu_torch.recognition.qr import detector
+    frame, text = cs.qr_scene(version)
+    got = detector.detect_and_decode(torch.from_numpy(frame).to(cuda))
+    want = detector.detect_and_decode(frame, device="cpu")
+    assert got[0] == want[0] == text.encode()
+    assert cs._same_detection(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("target", ["chessboard", "square_grid",
+                                    "circle_grid", "hex_grid"])
+def test_calib_targets_on_card_equal_cpu(cuda, target):
+    """Each target detector on two views on both devices: lattices equal,
+    points within 1e-4 px."""
+    import chip_smoke as cs
+    from boofcv_tpu_torch.recognition import calib_targets as ct
+    from boofcv_tpu_torch.recognition import chessboard as cb
+    views, _, _ = cs.calib_scene(target)
+    fns = {"chessboard": [cb.detect_chessboard_auto,
+                          lambda im: cb.detect_chessboard(im, 7, 9)],
+           "square_grid": [ct.detect_square_grid_auto,
+                           lambda im: ct.detect_square_grid(im, 5, 7)],
+           "circle_grid": [ct.detect_circle_regular_grid_auto,
+                           lambda im: ct.detect_circle_regular_grid(im, 6,
+                                                                    8)],
+           "hex_grid": [ct.detect_circle_hexagonal_grid_auto,
+                        lambda im: ct.detect_circle_hexagonal_grid(im, 9,
+                                                                   13)]}
+    for v in (2, 9):
+        for fn in fns[target]:
+            cpu = fn(torch.from_numpy(views[v]))
+            card = fn(torch.from_numpy(views[v]).to(cuda))
+            assert cpu is not None
+            assert cs._same_detection(card, cpu, 1e-4)
