@@ -1,5 +1,5 @@
 """Pixel interpolation (port of ``boofcv_tpu/ip/interpolate.py``:
-``nearest``, ``bilinear``, ``sample_rect_bilinear``,
+``nearest``, ``bilinear``, ``in_bounds``, ``sample_rect_bilinear``,
 ``sample_rect_bilinear_multi``).
 
 BoofCV convention: integer coordinates hit pixel centres; out-of-range
@@ -97,3 +97,12 @@ def sample_rect_bilinear_multi(images: torch.Tensor, cy: torch.Tensor,
     fy = fy.to(img.dtype)[..., None, :, None, None]
     fx = fx.to(img.dtype)[..., None, :, None, None]
     return _blend(sl, fy, fx, p)
+
+
+def in_bounds(shape_hw, ys: torch.Tensor, xs: torch.Tensor,
+              border: float = 0.0) -> torch.Tensor:
+    """Mask of the coordinates whose bilinear support lies inside the
+    image (``border`` pixels in from its edge)."""
+    h, w = shape_hw
+    return ((ys >= border) & (ys <= h - 1 - border)
+            & (xs >= border) & (xs <= w - 1 - border))

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths (stereo VO, bundle adjustment, the
 breadth surface, the other VO families and 2-D motion, multi-view SfM,
-fiducials, QR codes and calibration targets) once on one CUDA card.
+fiducials, QR codes and calibration targets, and the rest of ip/ and
+feature/) once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -11,8 +12,8 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    TF32 switches; fails without a CUDA device;
 2. build: both kernels (``window_gather``, ``klt_track``) from
    ``boofcv_tpu_torch/kernels/csrc``, one ``nvcc`` each, and the native
-   host library (``boofcv_tpu_torch/native/ccl.cpp``, ``g++``), started
-   together;
+   host library (``boofcv_tpu_torch/native/ccl.cpp`` and ``merge.cpp``,
+   one ``g++``), started together;
 3. each kernel vs its plain version on the card at the main path's shapes.
    ``window_gather`` (KLT 512 windows of 24x16 on every pyramid level of
    640x480, sparse-SAD strips 7x102 and 7x7 with negative columns and rows
@@ -152,7 +153,27 @@ Phases, each printed on its own line(s); any failure exits non-zero:
     frames, noise sigma 6 (each decoded exactly, card = CPU);
     ``calib_targets:`` 12 640x480 views each of a 9x7 chessboard (auto with
     an occluded view, and known size), a square grid, a circle grid and a
-    hexagonal circle grid, then Zhang99 from each (``CAL_BARS``).
+    hexagonal circle grid, then Zhang99 from each (``CAL_BARS``);
+18. the rest of ip/ and feature/ (none of it reaches a hand kernel but
+    SFOT, which tracks through ``klt_track``), each call measured as in 16
+    and held against the same call on the CPU: ``ip_rest:`` colour round
+    trips at 1280x720, ``filter_frequency`` against numpy's FFT, the three
+    wavelet denoisers (the JAX test's MSE bar), ``equalize_histogram``
+    (no host sync) and ``equalize_local``, ``mls.deform`` with 20 control
+    points, a planar blur and Sobel bit-equal to calls a band;
+    ``background:`` the basic, Gaussian and GMM models of a static camera
+    and of a panning one (a known homography a frame) over 30 640x480
+    frames with a crossing square (the JAX tests' detection and
+    false-positive bars); ``segmentation:`` ``slic`` with 400 segments
+    (boundary recall), ``segment_mean_shift`` (the native merge's host
+    time), ``watershed`` from 64 markers (trips, flag reads, syncs),
+    ``segment_fh04`` (native merge = ``_fh04_merge_numpy``; regions against
+    the truth); ``lines:`` ``hough_binary`` and ``hough_gradient`` find
+    every planted line, grid-RANSAC segments connected along a pentagon's
+    edges; ``template:`` SSD, SAD and NCC of a 32x32 template find it
+    exactly, ``conv2d`` timed beside shifted adds; ``dense:`` HOG and dense
+    SIFT; ``trackers:`` circulant, mean-shift, SFOT and Comaniciu over 30
+    frames of a moving target (the JAX tests' distances).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -240,9 +261,10 @@ def _trace(run, attempts: int = 5, cpu: bool = True):
     led by launches of a kernel that returns at once
     (``window_gather_pad_kernel``): a few, then ``PROFILER_LEAD_S`` of
     waiting, then ``PROFILER_PADS`` more, then ``run()``.  What is lost is
-    padding: while one pad is seen, everything after the pads was seen.  A
-    trace that shows no pad is taken again with four times the wait and the
-    pads.  The pads are left out of the events returned.  ``cpu=False``
+    padding as a rule: while one pad is seen, everything after the pads was
+    seen.  A trace that shows no pad, or the pads and nothing after them
+    (seen once in a whole run), is taken again with four times the wait and
+    the pads.  The pads are left out of the events returned.  ``cpu=False``
     traces the device alone (no operator events: a call of 10^5 launches
     costs half the time to trace)."""
     from boofcv_tpu_torch.kernels import window_gather as wg
@@ -260,14 +282,18 @@ def _trace(run, attempts: int = 5, cpu: bool = True):
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type.name == "CUDA"]
         kept = [e for e in events if "window_gather_pad_kernel" not in e.name]
-        if len(kept) < len(events):
-            check(len(kept) > 0, "the profiled call ran nothing on the device")
+        if kept and len(kept) < len(events):
             return kept, prof
-        print(f"profiler: none of 8 + {pads} leading pads seen ({lead} s "
+        # pads seen and nothing after them: the profiler dropped the call's
+        # events (seen on this kind of host); a call that runs nothing on
+        # the device shows none in any attempt and fails below
+        seen = "some" if kept != events else "none"
+        print(f"profiler: {seen} of 8 + {pads} leading pads seen ({lead} s "
               f"between them), {len(kept)} other device events (attempt "
               f"{attempt + 1} of {attempts})")
         lead, pads = 4 * lead, 4 * pads
-    raise SmokeFailure(f"the profiler lost the head of {attempts} traces")
+    raise SmokeFailure(f"the profiler lost the head of {attempts} traces, "
+                       f"or the profiled call ran nothing on the device")
 
 
 def device_ms(fn, reps: int, kernel: str | None = None) -> float:
@@ -4449,6 +4475,825 @@ def phase_calib_targets(dev) -> None:
     check(not bad, f"calib_targets: {bad} off")
 
 
+# ---- the rest of ip/ and feature/: colour, FFT, wavelets, enhancement, ----
+# ---- MLS, planar; background, segmentation, lines, template, dense, -------
+# ---- the object trackers --------------------------------------------------
+
+SLICE_FRAMES = 30                 # background: and trackers: frames
+SLIC_SEGMENTS = 400
+N_MARKERS = 64                    # watershed seeds, an 8 x 8 grid
+TEMPLATE_SIDE = 32
+
+
+def _host_np(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _gap(a, b) -> float:
+    """Largest absolute difference of two (nested) tensor results."""
+    if isinstance(a, (tuple, list)):
+        return max(_gap(x, y) for x, y in zip(a, b))
+    return float(np.max(np.abs(_host_np(a).astype(np.float64)
+                               - _host_np(b).astype(np.float64))))
+
+
+def smooth_rgb(h, w, seed=0) -> np.ndarray:
+    """An [h, w, 3] colour image as a camera sees one: a luma texture
+    (grey 40-200) with chroma that varies slowly (+-30, blurred sigma 20),
+    so that 4:2:0 subsampling keeps it."""
+    from scipy.ndimage import gaussian_filter
+    from boofcv_tpu_torch.io import simulate
+    rng = np.random.default_rng(seed)
+    side = max(h, w)
+    luma = simulate.noise_texture(rng, size=side)[:h, :w] / 245.0 * 160 + 40
+    chroma = np.stack([gaussian_filter(rng.uniform(-1, 1, (h, w)), 20.0)
+                       for _ in range(3)], axis=-1)
+    chroma *= 30.0 / np.abs(chroma).max()
+    return (luma[..., None] + chroma).astype(np.float32)
+
+
+def denoise_scene(h=None, w=None, seed=5, sigma=20.0) -> tuple:
+    """(clean, noisy) float32: smooth shading with blocks, noise sigma 20."""
+    h, w = h or H, w or W
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    clean = (120 + 60 * np.sin(xx / 9.0) * np.cos(yy / 13.0)
+             + 40 * ((xx // 32 + yy // 32) % 2)).astype(np.float32)
+    noise = np.random.default_rng(seed).normal(0, sigma, clean.shape)
+    return clean, (clean + noise).astype(np.float32)
+
+
+def _psnr(img, clean) -> float:
+    return float(10 * np.log10(255.0 ** 2 / np.mean((img - clean) ** 2)))
+
+
+def phase_ip_rest(dev) -> None:
+    """``ip_rest:`` colour round trips at 1280x720; ``filter_frequency`` at
+    480x640 against ``numpy.fft``; the three wavelet denoisers, 3 levels,
+    on a noisy 640x480 image (the JAX test's bar: MSE below 0.6 of the
+    noisy input's); ``equalize_histogram`` (its syncs) and
+    ``equalize_local``; ``mls.deform`` with 20 control points; a planar
+    3-band blur and Sobel, bit-equal to calls a band.  Each against the
+    same call on the CPU."""
+    from boofcv_tpu_torch.ip import (blur, color, derivative, enhance, fft,
+                                     mls, planar, wavelet)
+    rgb = smooth_rgb(REC_H, REC_W, seed=21)
+
+    def trips(t):
+        return (color.hsv_to_rgb(color.rgb_to_hsv(t)),
+                color.yuv_to_rgb(color.rgb_to_yuv(t)),
+                color.lab_to_rgb(color.rgb_to_lab(t / 255.0)) * 255.0,
+                color.yuv420_to_rgb(*color.rgb_to_yuv420(t)))
+    t = torch.from_numpy(rgb).to(dev)
+    outs, _ = _multiview("ip_rest", f"colour round trips HSV, YUV, Lab, YUV "
+                         f"4:2:0 of {REC_W}x{REC_H}", lambda: trips(t), dev,
+                         reps=5)
+    cpu = trips(torch.from_numpy(rgb))
+    errs = [float(np.abs(_host_np(o) - rgb).max()) for o in outs[:3]]
+    e420 = float(np.abs(_host_np(outs[3]) - rgb).mean())
+    gap = _gap(outs, cpu)
+    print(f"ip_rest: accuracy: colour round trips max error HSV "
+          f"{errs[0]:.3e} (bar 1e-3), YUV {errs[1]:.3e} (bar 0.1: "
+          f"ColorYuv's two coefficient sets invert to 2e-4), Lab "
+          f"{errs[2]:.3e} (bar 1e-2) grey levels, YUV 4:2:0 mean error "
+          f"{e420:.4f} (bar 0.5, the JAX test's); card against the CPU max "
+          f"{gap:.3e} (bar 1e-3)")
+    check(errs[0] < 1e-3 and errs[1] < 0.1 and errs[2] < 1e-2
+          and e420 < 0.5 and gap < 1e-3, "ip_rest: colour round trips off")
+
+    img = smooth_rgb(H, W, seed=22)[..., 0]
+    tr = fft.gaussian_lowpass_transfer(H, W, 0.2, device=dev)
+    ti = torch.from_numpy(img).to(dev)
+    out, _ = _multiview("ip_rest", f"filter_frequency {W}x{H} (float32 "
+                        "spectrum, float64 transfer)",
+                        lambda: fft.filter_frequency(ti, tr), dev, reps=5)
+    want = np.real(np.fft.ifft2(np.fft.fft2(img.astype(np.float64))
+                                * _host_np(tr)))
+    cpu = fft.filter_frequency(torch.from_numpy(img), tr.cpu())
+    err, gap = _gap(out, want), _gap(out, cpu)
+    print(f"ip_rest: accuracy: filter_frequency against numpy.fft (float64) "
+          f"max {err:.3e} grey levels (bar 1e-3), card against the CPU "
+          f"{gap:.3e} (bar 1e-3)")
+    check(err < 1e-3 and gap < 1e-3, "ip_rest: filter_frequency off")
+
+    clean, noisy = denoise_scene()
+    tn = torch.from_numpy(noisy).to(dev)
+    for rule in ("denoise_visu", "denoise_bayes", "denoise_sure"):
+        fn = getattr(wavelet, rule)
+        den, _ = _multiview("ip_rest", f"{rule} haar, 3 levels, {W}x{H}",
+                            lambda fn=fn: fn(tn, levels=3), dev, reps=5)
+        cpu = fn(torch.from_numpy(noisy), levels=3).numpy()
+        d = _host_np(den)
+        mse_in = float(np.mean((noisy - clean) ** 2))
+        mse = float(np.mean((d - clean) ** 2))
+        gain = _psnr(d, clean) - _psnr(noisy, clean)
+        cgain = _psnr(cpu, clean) - _psnr(noisy, clean)
+        print(f"ip_rest: accuracy: {rule}: PSNR {_psnr(noisy, clean):.3f} "
+              f"-> {_psnr(d, clean):.3f} dB (gain {gain:.4f} dB; MSE "
+              f"{mse_in:.2f} -> {mse:.2f}, bar below 0.6 of it, the JAX "
+              f"test's); CPU gain {cgain:.4f} dB (bar: within 0.01 dB), "
+              f"card against the CPU max {_gap(d, cpu):.3e}")
+        check(mse < 0.6 * mse_in and abs(gain - cgain) < 0.01,
+              f"ip_rest: {rule} off")
+
+    low = np.round(img * 0.3 + 80).astype(np.float32)
+    tl = torch.from_numpy(low).to(dev)
+    eq, _ = _multiview("ip_rest", f"equalize_histogram {W}x{H} (integer "
+                       "scatter_add_ histogram)",
+                       lambda: enhance.equalize_histogram(tl), dev, reps=5)
+    _, syncs = _count_sync_warnings(lambda: enhance.equalize_histogram(tl))
+    loc, _ = _multiview("ip_rest", f"equalize_local radius 2 {W}x{H} (25 "
+                        "shifted compares)",
+                        lambda: enhance.equalize_local(tl, 2), dev, reps=5)
+    same = (np.array_equal(_host_np(eq), enhance.equalize_histogram(
+        torch.from_numpy(low)).numpy())
+            and np.array_equal(_host_np(loc), enhance.equalize_local(
+                torch.from_numpy(low), 2).numpy()))
+    print(f"ip_rest: accuracy: equalize_histogram range [{low.min():.0f}, "
+          f"{low.max():.0f}] -> [{float(eq.min()):.0f}, "
+          f"{float(eq.max()):.0f}], host syncs {sum(syncs.values())} (a "
+          f"bincount takes 2); equalize_histogram and equalize_local on the "
+          f"card = on the CPU: {same}")
+    check(same and sum(syncs.values()) == 0 and float(eq.max()) > 250,
+          "ip_rest: equalization off")
+
+    rng = np.random.default_rng(23)
+    src = np.stack([rng.uniform(40, W - 40, 20), rng.uniform(40, H - 40, 20)],
+                   1).astype(np.float32)
+    # whole-pixel targets: the backward map at each must be its source
+    dst = np.round(src + rng.normal(0, 6, src.shape)).astype(np.float32)
+    warped, _ = _multiview("ip_rest", f"mls.deform affine, 20 control "
+                           f"points, {W}x{H}",
+                           lambda: mls.deform(ti, src, dst), dev, reps=5)
+    my, mx = mls.mls_affine(src, dst, H, W, device=dev)
+    at = dst.astype(int)
+    land = float(np.max(np.hypot(_host_np(mx)[at[:, 1], at[:, 0]] - src[:, 0],
+                                 _host_np(my)[at[:, 1], at[:, 0]]
+                                 - src[:, 1])))
+    cpu = mls.deform(torch.from_numpy(img), src, dst, device="cpu").numpy()
+    diff = np.abs(_host_np(warped) - cpu)
+    print(f"ip_rest: accuracy: mls.deform: the maps carry each control point "
+          f"within {land:.3e} px of its source (bar 0.05); card against the "
+          f"CPU within 0.05 grey levels on {np.mean(diff <= 0.05):.6f} of "
+          f"the pixels (bar 0.999), max {diff.max():.3e}")
+    check(land < 0.05 and np.mean(diff <= 0.05) >= 0.999,
+          "ip_rest: mls.deform off")
+
+    rgb = torch.from_numpy(smooth_rgb(H, W, seed=24)).to(dev)
+    blurred, _ = _multiview("ip_rest", f"planar.per_band(blur.gaussian, "
+                            f"sigma 2), 3 bands {W}x{H} (a call a band)",
+                            lambda: planar.per_band(blur.gaussian, rgb,
+                                                    sigma=2.0), dev, reps=5)
+    (dx, dy), _ = _multiview("ip_rest", f"planar.per_band(derivative.sobel),"
+                             f" 3 bands {W}x{H} (one call, the bands a batch)",
+                             lambda: planar.per_band(derivative.sobel, rgb),
+                             dev, reps=5)
+    bit = all(torch.equal(blurred[..., c], blur.gaussian(rgb[..., c],
+                                                         sigma=2.0))
+              and torch.equal(dx[..., c], derivative.sobel(rgb[..., c])[0])
+              and torch.equal(dy[..., c], derivative.sobel(rgb[..., c])[1])
+              for c in range(3))
+    print(f"ip_rest: accuracy: planar blur and Sobel bit-equal to the calls "
+          f"a band on the card: {bit}")
+    check(bit, "ip_rest: planar differs from the calls a band")
+
+
+def background_scene(n=SLICE_FRAMES, learn=20, seed=31, h=None, w=None):
+    """Static camera: (frames, truth masks), a smooth texture with sensor
+    noise sigma 2; after ``learn`` clean frames a 48 px square 100 grey
+    levels brighter crosses, 50 px a frame."""
+    from boofcv_tpu_torch.io import simulate
+    h, w = h or H, w or W
+    rng = np.random.default_rng(seed)
+    bg = simulate.noise_texture(rng, size=max(h, w))[:h, :w]
+    frames, masks = [], []
+    for i in range(n):
+        f = bg + rng.normal(0, 2, bg.shape).astype(np.float32)
+        m = np.zeros((h, w), bool)
+        if i >= learn:
+            x0 = 40 + 50 * (i - learn)
+            m[h // 2 - 24:h // 2 + 24, x0:x0 + 48] = True
+            f[m] += 100.0
+        frames.append(f.astype(np.float32))
+        masks.append(m)
+    return frames, masks
+
+
+def _world(xs, ys):
+    """The panning scene's world: smooth shading, exact at any point."""
+    return (128 + 45 * np.sin(xs / 7.0) * np.cos(ys / 11.0)
+            + 30 * np.sin((xs + 2 * ys) / 17.0)
+            + 20 * np.cos((3 * xs - ys) / 29.0)).astype(np.float32)
+
+
+def moving_background_scene(n=SLICE_FRAMES, learn=20, pan=3.5, h=None,
+                            w=None):
+    """Panning camera: (frames, home->current homographies, truth masks,
+    home shape): frame t shows the world at x + pan t; after ``learn``
+    frames a 40 px square of 250 crosses the view."""
+    h, w = h or H, w or W
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    frames, hs, masks = [], [], []
+    for i in range(n):
+        f = _world(xs + pan * i, ys)
+        m = np.zeros((h, w), bool)
+        if i >= learn:
+            x0 = 60 + 45 * (i - learn)
+            m[h // 3:h // 3 + 40, x0:x0 + 40] = True
+            f[m] = 250.0
+        frames.append(f)
+        hs.append(np.array([[1.0, 0.0, -pan * i], [0.0, 1.0, 0.0],
+                            [0.0, 0.0, 1.0]]))
+        masks.append(m)
+    return frames, hs, masks, (h, int(w + pan * n) + 2)
+
+
+def _mask_bars(seg, truth) -> tuple:
+    """(share of the truth detected, false-positive share of the other
+    known pixels, IoU) of a 0/1/2 segmentation."""
+    det = seg == 1
+    known = seg != 2
+    cover = float(det[truth].mean())
+    fp = float(det[~truth & known].mean())
+    return cover, fp, float((det & truth).sum() / max((det | truth).sum(),
+                                                       1))
+
+
+def phase_background(dev) -> None:
+    """``background:`` 30 frames of 640x480: the basic, Gaussian and GMM
+    models of a static camera, and their moving-camera variants under a
+    known homography a frame; each segments every frame with the square
+    before it learns it.  Bars, the JAX tests': the square detected on
+    95 % of its pixels (GMM and the moving models 90 %), false positives
+    under 5 % (moving: 10 %, 20 % for Gaussian and GMM); the card's masks
+    equal the CPU's; ms per update and per segment."""
+    from boofcv_tpu_torch.feature import background as bg
+    frames, masks = background_scene()
+    mframes, hs, mmasks, home = moving_background_scene()
+    static = {"basic": (bg.basic_init, bg.basic_update, bg.basic_segment,
+                        0.95, 0.05),
+              "gaussian": (bg.gaussian_init, bg.gaussian_update,
+                           bg.gaussian_segment, 0.95, 0.05),
+              "gmm": (bg.gmm_init, bg.gmm_update, bg.gmm_segment, 0.9,
+                      0.05)}
+    moving = {"moving_basic": (bg.moving_init, bg.moving_basic_update,
+                               bg.moving_basic_segment, 0.9, 0.1),
+              "moving_gaussian": (bg.moving_gaussian_init,
+                                  bg.moving_gaussian_update,
+                                  bg.moving_gaussian_segment, 0.9, 0.2),
+              "moving_gmm": (bg.moving_gmm_init, bg.moving_gmm_update,
+                             bg.moving_gmm_segment, 0.9, 0.2)}
+    bad = []
+
+    def run(name, spec, device, imgs, hms, truth):
+        init, update, segment, _, _ = spec
+        imgs = [torch.from_numpy(f).to(device) for f in imgs]
+        hm = [None] * len(imgs) if hms is None else [
+            torch.from_numpy(x).to(device) for x in hms]
+        extra = (lambda i: ()) if hms is None else (lambda i: (hm[i],))
+        model = (init(imgs[0]) if hms is None else init(home, device=device))
+        segs = []
+        for i in range(len(imgs)):
+            if truth[i].any():
+                segs.append(_host_np(segment(model, imgs[i], *extra(i))))
+            model = update(model, imgs[i], *extra(i))
+        return model, segs, imgs, hm
+
+    for name, spec in list(static.items()) + list(moving.items()):
+        hms = None if name in static else hs
+        src, truth = (frames, masks) if name in static else (mframes, mmasks)
+        model, segs, imgs, hm = run(name, spec, dev, src, hms, truth)
+        _, cpu_segs, _, _ = run(name, spec, "cpu", src, hms, truth)
+        extra = () if hms is None else (hm[-1],)
+        _multiview("background", f"{name} update {W}x{H}",
+                   lambda: spec[1](model, imgs[-1], *extra), dev, reps=5)
+        _multiview("background", f"{name} segment {W}x{H}",
+                   lambda: spec[2](model, imgs[-1], *extra), dev, reps=5)
+        bars = [_mask_bars(s, m) for s, m in zip(segs, [m for m in truth
+                                                        if m.any()])]
+        cover = min(b[0] for b in bars)
+        fp = max(b[1] for b in bars)
+        iou = float(np.mean([b[2] for b in bars]))
+        same = float(np.mean([np.mean(a == b) for a, b in zip(segs,
+                                                              cpu_segs)]))
+        ok = cover >= spec[3] and fp < spec[4] and same >= 0.9999
+        print(f"background: accuracy: {name}: over the {len(segs)} frames "
+              f"with the square, detected share min {cover:.4f} (bar "
+              f"{spec[3]}), false positives max {fp:.4f} (bar {spec[4]}), "
+              f"mean IoU {iou:.4f}; masks on the card = on the CPU on "
+              f"{same:.6f} of the pixels (bar 0.9999)")
+        if not ok:
+            bad.append(name)
+    check(not bad, f"background: {bad} off")
+
+
+def segmentation_scene(h=None, w=None, seed=41) -> tuple:
+    """(colour image [h, w, 3] float32 integer-valued, truth regions):
+    flat colour rectangles of a jittered 6 x 8 grid and 6 disks over them,
+    noise sigma 2, rounded."""
+    h, w = h or H, w or W
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    ys = np.sort(np.concatenate([[0], rng.choice(np.arange(30, h - 30), 5,
+                                                  replace=False), [h]]))
+    xs = np.sort(np.concatenate([[0], rng.choice(np.arange(30, w - 30), 7,
+                                                  replace=False), [w]]))
+    region = (np.searchsorted(ys, yy, side="right") - 1) * 8 + (
+        np.searchsorted(xs, xx, side="right") - 1)
+    for k in range(6):
+        cy, cx, r = rng.uniform(60, h - 60), rng.uniform(60, w - 60), \
+            rng.uniform(25, 55)
+        region[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = 100 + k
+    _, region = np.unique(region, return_inverse=True)
+    region = region.reshape(h, w)
+    colours = rng.uniform(20, 235, (region.max() + 1, 3))
+    img = colours[region] + rng.normal(0, 2.0, (h, w, 3))
+    return np.clip(np.round(img), 0, 255).astype(np.float32), region
+
+
+def _boundary(labels) -> np.ndarray:
+    b = np.zeros(labels.shape, bool)
+    b[:, 1:] |= labels[:, 1:] != labels[:, :-1]
+    b[1:, :] |= labels[1:, :] != labels[:-1, :]
+    return b
+
+
+def _recall(truth, labels, tol=2) -> float:
+    """Share of the true boundary pixels within ``tol`` px of a boundary of
+    ``labels`` (boundary recall)."""
+    from scipy.ndimage import binary_dilation
+    near = binary_dilation(_boundary(labels), iterations=tol)
+    tb = _boundary(truth)
+    return float(near[tb].mean())
+
+
+def phase_segmentation(dev) -> None:
+    """``segmentation:`` the 640x480 colour scene of ``segmentation_scene``:
+    ``slic`` with 400 segments (boundary recall against the truth, labels
+    on the card against the CPU's); ``segment_mean_shift`` of its grey
+    version (the native merge's host time); ``watershed`` from 64 markers
+    on the gradient (trips, reads of its flag, syncs; equal to the CPU's);
+    ``segment_fh04`` (the native merge equals ``_fh04_merge_numpy`` on a
+    160x120 window of the same weights; the regions of 500 px or more
+    against the truth's, and their purity)."""
+    from boofcv_tpu_torch import native
+    from boofcv_tpu_torch.feature import segmentation as seg
+    from boofcv_tpu_torch.ip import derivative
+    img, truth = segmentation_scene()
+    ti = torch.from_numpy(img).to(dev)
+    lab, _ = _multiview("segmentation", f"slic {SLIC_SEGMENTS} segments, 10 "
+                        f"iterations, {W}x{H} colour", lambda: seg.slic(
+                            ti, SLIC_SEGMENTS), dev, reps=3)
+    lab = _host_np(lab)
+    cpu = seg.slic(torch.from_numpy(img), SLIC_SEGMENTS).numpy()
+    recall = _recall(truth, lab)
+    agree = float(np.mean(lab == cpu))
+    print(f"segmentation: accuracy: slic: {len(np.unique(lab))} segments, "
+          f"boundary recall {recall:.4f} within 2 px (bar 0.9); labels on "
+          f"the card = on the CPU on {agree:.6f} of the pixels (bar 0.99: "
+          f"the centre sums' order is cuBLAS's)")
+    check(recall >= 0.9 and agree >= 0.99, "segmentation: slic off")
+
+    gray = img.mean(axis=2).astype(np.float32)
+    tg = torch.from_numpy(gray).to(dev)
+    (ms_lab, filt), _ = _multiview(
+        "segmentation", f"segment_mean_shift radius 3, 5 iterations, "
+        f"{W}x{H} grey (filter on the card, native merge on the host)",
+        lambda: seg.segment_mean_shift(tg), dev, reps=3)
+    flat = _host_np(filt)
+    t0 = time.perf_counter()
+    right, down = seg._similar(flat, 8.0)
+    roots = native.mean_shift_merge(right, down)
+    merge_ms = 1e3 * (time.perf_counter() - t0)
+    cpu_lab, cpu_filt = seg.segment_mean_shift(torch.from_numpy(gray))
+    fgap = _gap(filt, cpu_filt)
+    same_merge = np.array_equal(seg._labels_from_roots(roots), ms_lab)
+    agree = float(np.mean(ms_lab == cpu_lab))
+    print(f"segmentation: accuracy: segment_mean_shift: {ms_lab.max() + 1} "
+          f"regions; the native merge on the host {merge_ms:.3f} ms (masks "
+          f"and union-find, 307,200 pixels); filtered card against the CPU "
+          f"max {fgap:.3e} (bar 1e-2), labels equal on {agree:.6f} of the "
+          f"pixels (bar 0.99), the merge repeated = the call's: "
+          f"{same_merge}")
+    check(fgap < 1e-2 and agree >= 0.99 and same_merge,
+          "segmentation: segment_mean_shift off")
+
+    dx, dy = derivative.sobel(tg)
+    height = torch.hypot(dx, dy)
+    markers = np.zeros((H, W), np.int32)
+    for k, (y, x) in enumerate(np.stack(np.meshgrid(
+            np.linspace(30, H - 30, 8).astype(int),
+            np.linspace(40, W - 40, 8).astype(int), indexing="ij"),
+            -1).reshape(-1, 2)):
+        markers[y, x] = k + 1
+    tm = torch.from_numpy(markers).to(dev)
+    ws, _ = _multiview("segmentation", f"watershed {N_MARKERS} markers "
+                       f"{W}x{H}, the flag read every "
+                       f"{seg.WATERSHED_CHECK_EVERY} trips of 8 relaxations",
+                       lambda: seg.watershed(height, tm), dev, reps=3)
+    (_, trips, run, reads), syncs = _count_sync_warnings(
+        lambda: seg._watershed(height, tm))
+    cpu = seg.watershed(height.cpu(), torch.from_numpy(markers))
+    same = torch.equal(ws.cpu(), cpu)
+    print(f"segmentation: accuracy: watershed: the reference's loop makes "
+          f"{trips} trips ({trips} syncs); the port ran {run} trips with "
+          f"{reads} reads of the flag, host syncs {sum(syncs.values())} "
+          f"{dict(sorted(syncs.items()))}; every pixel labelled: "
+          f"{bool((ws > 0).all())}; card = CPU: {same}")
+    check(same and bool((ws > 0).all()), "segmentation: watershed off")
+
+    (fh, n), _ = _multiview("segmentation", f"segment_fh04 k 300, min size "
+                            f"200, {W}x{H} colour (weights on the card, "
+                            "native merge on the host)",
+                            lambda: seg.segment_fh04(ti, k=300.0,
+                                                     min_size=200), dev,
+                            reps=3)
+    ws4 = [_host_np(w_)[:120, :160].copy()
+           for w_ in seg.fh04_edge_weights(ti)]
+    t0 = time.perf_counter()
+    nat, nn = native.fh04_merge(*ws4, k=300.0, min_size=50)
+    nat_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ref, rn = seg._fh04_merge_numpy(*ws4, 300.0, 50)
+    np_ms = 1e3 * (time.perf_counter() - t0)
+    cpu, cn = seg.segment_fh04(torch.from_numpy(img), k=300.0, min_size=200)
+    same = np.array_equal(nat, ref) and nn == rn
+    # thin strips along the blurred edges come back as regions of their
+    # own: count the regions of 500 px and more on both sides
+    big = int((np.bincount(fh.ravel()) >= 500).sum())
+    big_true = int((np.bincount(truth.ravel()) >= 500).sum())
+    purity = sum(np.bincount(truth[fh == r]).max() for r in range(n)) \
+        / fh.size
+    print(f"segmentation: accuracy: segment_fh04: {n} regions, {big} of "
+          f"500 px or more against {big_true} true ones (bar within 20 %), "
+          f"purity {purity:.4f} (bar 0.95); on the card's weights "
+          f"of a 160x120 window the native merge ({nat_ms:.3f} ms) = "
+          f"_fh04_merge_numpy ({np_ms:.1f} ms, host): {same} ({nn} "
+          f"regions); labels on the card = on the CPU on "
+          f"{np.mean(fh == cpu):.6f} of the pixels (bar 0.99)")
+    check(same and abs(big - big_true) <= 0.2 * big_true
+          and purity >= 0.95 and np.mean(fh == cpu) >= 0.99,
+          "segmentation: segment_fh04 off")
+
+
+def _rasterize(h, w, rho, theta) -> np.ndarray:
+    """1-px line of normal angle theta at signed distance rho from the
+    image centre (the Hough convention)."""
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    yy, xx = np.mgrid[0:h, 0:w]
+    return np.abs((xx - cx) * np.cos(theta) + (yy - cy) * np.sin(theta)
+                  - rho) < 0.5
+
+
+LINES_TRUE = ((-150.0, 0.2), (40.0, 0.9), (120.0, 1.6), (-60.0, 2.3),
+              (200.0, 2.9), (-10.0, 0.05))      # (rho px, theta rad)
+POLYGON = ((140.0, 120.0), (420.0, 100.0), (560.0, 260.0), (470.0, 420.0),
+           (160.0, 400.0))                      # convex, (x, y), clockwise
+
+
+def polygon_scene(h=None, w=None, seed=51, ss=4) -> tuple:
+    """(image, edges [((x0, y0), (x1, y1))]): a bright convex pentagon on a
+    dark ground, its edges antialiased (``ss`` x ``ss`` samples a pixel),
+    noise sigma 2."""
+    h, w = h or H, w or W
+    sy, sx = h / 480.0, w / 640.0
+    pts = [(x * sx, y * sy) for x, y in POLYGON]
+    off = (np.arange(ss) + 0.5) / ss - 0.5
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    edges = list(zip(pts, pts[1:] + pts[:1]))
+    cover = np.zeros((h, w))
+    for oy in off:
+        for ox in off:
+            inside = np.ones((h, w), bool)
+            for (x0, y0), (x1, y1) in edges:
+                inside &= ((x1 - x0) * (yy + oy - y0)
+                           - (y1 - y0) * (xx + ox - x0)) >= 0
+            cover += inside
+    img = 50.0 + 150.0 * cover / ss ** 2 + np.random.default_rng(
+        seed).normal(0, 2.0, (h, w))
+    return img.astype(np.float32), edges
+
+
+def _polar(edge, h, w) -> tuple:
+    """(rho, theta in [0, pi)) of the line through an edge, about the image
+    centre."""
+    (x0, y0), (x1, y1) = edge
+    theta = np.arctan2(-(x1 - x0), y1 - y0) % np.pi
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    return (x0 - cx) * np.cos(theta) + (y0 - cy) * np.sin(theta), theta
+
+
+def _lines_found(res, truth, rho_tol=1.5, theta_tol=np.radians(1.5)):
+    """[N] for each true (rho, theta): the closest found line's (drho,
+    dtheta), with theta compared mod pi (rho's sign flips over the
+    wrap)."""
+    v = _host_np(res.valid)
+    rho = _host_np(res.rho)[v].astype(np.float64)
+    th = _host_np(res.theta)[v].astype(np.float64)
+    out = []
+    for r0, t0 in truth:
+        d = []
+        for r, t in zip(rho, th):
+            dt = abs(t - t0)
+            if dt > np.pi / 2:
+                d.append((abs(-r - r0), np.pi - dt))
+            else:
+                d.append((abs(r - r0), dt))
+        out.append(min(d, key=lambda x: x[0] / rho_tol + x[1] / theta_tol,
+                       default=(np.inf, np.inf)))
+    return out
+
+
+def _line_gap(a, b, rho_bin: float) -> tuple:
+    """(same count, the largest distance in (rho, theta) bins from a line of
+    ``a`` to the nearest line of ``b``).  theta bins are 1 deg."""
+    va, vb = _host_np(a.valid), _host_np(b.valid)
+    ra, ta = _host_np(a.rho)[va], _host_np(a.theta)[va]
+    rb, tb = _host_np(b.rho)[vb], _host_np(b.theta)[vb]
+    worst = 0.0
+    for r, t in zip(ra, ta):
+        d = np.maximum(np.abs(rb - r) / rho_bin,
+                       np.abs(tb - t) / np.radians(1.0))
+        worst = max(worst, float(d.min()) if d.size else np.inf)
+    return va.sum() == vb.sum(), worst
+
+
+def phase_lines(dev) -> None:
+    """``lines:`` 640x480 scenes with planted lines: ``hough_binary`` of six
+    1-px lines (180 x 801 bins), ``hough_gradient`` of a pentagon's five
+    edges (180 x 401 bins, 1.5 px and 2 deg), ``grid_ransac_lines`` +
+    ``connect_segments`` on the pentagon with hypothesis pairs drawn on the
+    CPU from a generator seeded 0 and passed to both devices.  Bars: every planted line within 1.5 px and
+    1.5 deg; every pentagon edge covered by a connected segment within 2
+    deg and 3 px spanning half of it; the card's lines within a bin of the
+    CPU's, its segments equal."""
+    from boofcv_tpu_torch.feature import lines
+    bw = np.zeros((H, W), np.uint8)
+    for rho, theta in LINES_TRUE:
+        bw |= _rasterize(H, W, rho, theta)
+    tb = torch.from_numpy(bw).to(dev)
+    res, _ = _multiview("lines", f"hough_binary 180 x 801 bins, {W}x{H}, "
+                        f"{int(bw.sum())} edge pixels",
+                        lambda: lines.hough_binary(tb, n_rho=801,
+                                                   max_lines=6,
+                                                   peak_radius=3),
+                        dev, reps=5)
+    cpu = lines.hough_binary(torch.from_numpy(bw), n_rho=801, max_lines=6,
+                             peak_radius=3)
+    found = _lines_found(res, LINES_TRUE)
+    ok_b = all(dr <= 1.5 and dt <= np.radians(1.5) for dr, dt in found)
+    img, edges = polygon_scene()
+    ti = torch.from_numpy(img).to(dev)
+    truth = [_polar(e, H, W) for e in edges]
+    gres, _ = _multiview("lines", f"hough_gradient 180 x 401 bins, {W}x{H}",
+                         lambda: lines.hough_gradient(
+                             ti, n_rho=401, max_lines=5, peak_radius=3,
+                             edge_threshold=100.0), dev, reps=5)
+    gcpu = lines.hough_gradient(torch.from_numpy(img), n_rho=401,
+                                max_lines=5, peak_radius=3,
+                                edge_threshold=100.0)
+    gfound = _lines_found(gres, truth)
+    # each pixel votes at its truncated Sobel angle: up to a bin (1 deg) low
+    ok_g = all(dr <= 1.5 and dt <= np.radians(2.0) for dr, dt in gfound)
+    # the card's float64 cos and sin round otherwise than the CPU's: a
+    # vote on a bin edge may move to the next bin, and a peak with it
+    max_r = float(np.hypot(H - 1, W - 1)) / 2.0
+    nb, gb = _line_gap(res, cpu, 2 * max_r / 800), _line_gap(gres, gcpu,
+                                                             2 * max_r / 400)
+    same = nb[0] and gb[0] and max(nb[1], gb[1]) <= 1.0
+    worst = lambda f: (max(x[0] for x in f), np.degrees(max(x[1]
+                                                            for x in f)))
+    print(f"lines: accuracy: hough_binary: the 6 planted lines found within "
+          f"{worst(found)[0]:.3f} px and {worst(found)[1]:.3f} deg (bars 1.5 "
+          f"px, 1.5 deg); hough_gradient: the pentagon's 5 edges within "
+          f"{worst(gfound)[0]:.3f} px and {worst(gfound)[1]:.3f} deg (bars "
+          f"1.5 px, 2 deg); lines on the card within {nb[1]:.3f} and "
+          f"{gb[1]:.3f} bins of the CPU's (bar 1): {same}")
+    check(ok_b and ok_g and same, "lines: a planted line missed")
+
+    nreg = (H // 32) * (W // 32)
+    pairs = torch.randint(0, 48, (nreg, 64, 2),
+                          generator=torch.Generator().manual_seed(0))
+    pd = pairs.to(dev)
+
+    def grid():
+        segs = lines.grid_ransac_lines(ti, pair_idx=pd)
+        return segs, lines.connect_segments(segs, dist_tol=3.0)
+    (segs, merged), _ = _multiview(
+        "lines", f"grid_ransac_lines ({nreg} regions of 32 px, 64 "
+        f"hypotheses, 2 rounds) + connect_segments on the host, {W}x{H}",
+        grid, dev, reps=5)
+    csegs = lines.grid_ransac_lines(torch.from_numpy(img), pair_idx=pairs)
+    same = (torch.equal(segs.valid.cpu(), csegs.valid)
+            and torch.equal(segs.inliers.cpu(), csegs.inliers)
+            and max(_gap(getattr(segs, f)[segs.valid],
+                         getattr(csegs, f)[csegs.valid])
+                    for f in ("x0", "y0", "x1", "y1")) < 1e-3)
+    cover = []
+    for (x0, y0), (x1, y1) in edges:
+        length = np.hypot(x1 - x0, y1 - y0)
+        ux, uy = (x1 - x0) / length, (y1 - y0) / length
+        best = 0.0
+        for a, b, c, d in zip(merged.x0, merged.y0, merged.x1, merged.y1):
+            seg_len = np.hypot(c - a, d - b)
+            ang = abs(np.arctan2(d - b, c - a) - np.arctan2(uy, ux)) % np.pi
+            ang = min(ang, np.pi - ang)
+            off = max(abs((a - x0) * uy - (b - y0) * ux),
+                      abs((c - x0) * uy - (d - y0) * ux))
+            if ang <= np.radians(2.0) and off <= 3.0:
+                best = max(best, seg_len / length)
+        cover.append(best)
+    print(f"lines: accuracy: grid_ransac_lines: {int(segs.valid.sum())} "
+          f"fragments, connected into {len(merged.x0)} segments; each "
+          f"pentagon edge's longest matching segment spans "
+          f"{[round(float(c), 3) for c in cover]} of it (bar 0.5, within 2 "
+          f"deg and 3 px); fragments on the card = on the CPU (1e-3 px): {same}")
+    check(min(cover) >= 0.5 and same, "lines: grid-RANSAC segments off")
+
+
+def template_scene(seed=61) -> tuple:
+    """(noisy image, template, (ty, tx)): a 640x480 noise texture with
+    noise sigma 2, the 32x32 template cut from the clean image."""
+    from boofcv_tpu_torch.io import simulate
+    rng = np.random.default_rng(seed)
+    clean = simulate.noise_texture(rng, size=W)[:H, :W]
+    ty, tx = 201, 333
+    tmpl = clean[ty:ty + TEMPLATE_SIDE, tx:tx + TEMPLATE_SIDE].copy()
+    noisy = clean + rng.normal(0, 2.0, clean.shape).astype(np.float32)
+    return noisy.astype(np.float32), tmpl, (ty, tx)
+
+
+def phase_template(dev) -> None:
+    """``template:`` a 32x32 template in a 640x480 texture: ``match_ssd``,
+    ``match_sad`` and ``match_ncc`` with ``find_matches`` find the planted
+    location exactly, on the card as on the CPU; the correlation as one
+    ``F.conv2d`` (float32, TF32 off) timed beside 1,024 shifted adds."""
+    from boofcv_tpu_torch.feature import template
+    img, tmpl, where = template_scene()
+    ti = torch.from_numpy(img).to(dev)
+    tt = torch.from_numpy(tmpl).to(dev)
+    found = {}
+    for name in ("match_ssd", "match_sad", "match_ncc"):
+        fn = getattr(template, name)
+
+        def run(fn=fn):
+            score = fn(ti, tt)
+            return score, template.find_matches(score, max_matches=1)
+        (score, det), _ = _multiview("template", f"{name} + find_matches, "
+                                     f"{TEMPLATE_SIDE}x{TEMPLATE_SIDE} in "
+                                     f"{W}x{H}", run, dev, reps=5)
+        cpu = fn(torch.from_numpy(img), torch.from_numpy(tmpl))
+        span = float(cpu.max() - cpu.min())
+        found[name] = ((int(det.ys[0]), int(det.xs[0])),
+                       _gap(score, cpu) / span)
+    conv = template._valid_correlate(ti, tt)
+    shifted = template._valid_correlate_shifted(ti, tt)
+    conv_ms = _solve_ms(lambda: template._valid_correlate(ti, tt))
+    shift_ms = _solve_ms(lambda: template._valid_correlate_shifted(ti, tt),
+                         reps=3)
+    rel = _gap(conv, shifted) / float(shifted.abs().max())
+    print(f"template: accuracy: peaks {({k: v[0] for k, v in found.items()})}"
+          f" against the planted {where}; score maps card against the CPU "
+          f"{({k: f'{v[1]:.2e}' for k, v in found.items()})} of their range "
+          f"(bar 1e-5); the correlation: F.conv2d median "
+          f"{np.median(conv_ms):.3f} ms, 1,024 shifted adds median "
+          f"{np.median(shift_ms):.3f} ms (CUDA events), equal to "
+          f"{rel:.2e} of the largest value (bar 1e-5)")
+    check(all(v[0] == where and v[1] < 1e-5 for v in found.values())
+          and rel < 1e-5, "template: a peak off the planted location")
+
+
+def phase_dense(dev) -> None:
+    """``dense:`` ``hog`` (cell 8, 2x2 blocks, 9 bins, float64) and
+    ``dense_sift`` (cell 8, step 8) of a 640x480 texture, card against
+    CPU."""
+    from boofcv_tpu_torch.feature import dense
+    img, _, _ = template_scene(seed=71)
+    ti = torch.from_numpy(img).to(dev)
+    hog, _ = _multiview("dense", f"hog cell 8, 2x2 blocks, 9 bins, {W}x{H}",
+                        lambda: dense.hog(ti), dev, reps=5)
+    (ys, xs, desc), _ = _multiview("dense", f"dense_sift cell 8, step 8, "
+                                   f"{W}x{H}", lambda: dense.dense_sift(ti),
+                                   dev, reps=5)
+    chog = dense.hog(torch.from_numpy(img)).numpy()
+    _, _, cdesc = dense.dense_sift(torch.from_numpy(img))
+    hdiff = np.abs(_host_np(hog) - chog).max(axis=-1)
+    ddiff = np.abs(_host_np(desc) - cdesc.numpy()).max(axis=-1)
+    norms = np.linalg.norm(_host_np(desc), axis=1)
+    print(f"dense: accuracy: hog {tuple(hog.shape)} blocks, card against "
+          f"the CPU within 1e-6 on {np.mean(hdiff <= 1e-6):.6f} of them "
+          f"(bar 0.999; a gradient angle on a bin edge rounds either way), "
+          f"max {hdiff.max():.3e}; dense_sift {len(ys)} descriptors of "
+          f"norm {norms.min():.6f}-{norms.max():.6f}, within 1e-4 of the "
+          f"CPU's on {np.mean(ddiff <= 1e-4):.6f} of them (bar 0.99), max "
+          f"{ddiff.max():.3e}")
+    check(np.mean(hdiff <= 1e-6) >= 0.999 and np.mean(ddiff <= 1e-4) >= 0.99
+          and abs(norms - 1).max() < 1e-4, "dense: card differs from CPU")
+
+
+TRACK_SIDE = 64                   # the target's side (px)
+TRACK_V = (1, 2)                  # its motion a frame (dy, dx)
+
+
+def tracker_scene(n=SLICE_FRAMES + 1, seed=81) -> tuple:
+    """(frames, true centres): a 64 px target moving (1, 2) px a frame (the
+    JAX tests' speeds) over a smooth dark 640x480 texture (grey 10-90):
+    bright at its centre (grey 240), dimmer to its edges (110), with
+    texture of +-19 (enough for KLT and the correlation filter, little
+    enough for the histograms)."""
+    from boofcv_tpu_torch.io import simulate
+    rng = np.random.default_rng(seed)
+    ground = simulate.noise_texture(rng, size=W)[:H, :W] / 245.0 * 80 + 10
+    r = np.hypot(*(np.mgrid[0:TRACK_SIDE, 0:TRACK_SIDE]
+                   - (TRACK_SIDE - 1) / 2.0))
+    target = (110 + 130 * np.exp(-0.5 * (r / 18.0) ** 2)
+              + (simulate.noise_texture(rng, size=TRACK_SIDE, octaves=2)
+                 - 127.5) * 0.15)
+    frames, centres = [], []
+    for i in range(n):
+        y0, x0 = 100 + TRACK_V[0] * i, 120 + TRACK_V[1] * i
+        f = ground.copy()
+        f[y0:y0 + TRACK_SIDE, x0:x0 + TRACK_SIDE] = target
+        frames.append(f.astype(np.float32))
+        centres.append((y0 + (TRACK_SIDE - 1) / 2.0,
+                        x0 + (TRACK_SIDE - 1) / 2.0))
+    return frames, centres
+
+
+def phase_trackers(dev) -> dict:
+    """``trackers:`` circulant (window 96), mean-shift likelihood (radius
+    24), SFOT (the 64 px region, 9x9 grid, scales 1/2/4) and Comaniciu
+    (half size 32) over 30 frames of ``tracker_scene``; each frame a step,
+    timed, syncs counted and profiled as the VO families are.  Bars: the
+    centre within the JAX tests' distances of the truth on every frame (3
+    px circulant, 4 px mean-shift and Comaniciu; SFOT's move of every
+    frame within 0.5 px of the true move); the card's last centre against
+    the CPU's over the same frames (circulant and mean-shift 1e-3 px, SFOT
+    0.05 px, Comaniciu 2 px: 30 mean-shift iterations a scale on
+    bin-quantized histograms amplify rounding).  SFOT runs ``klt_track``;
+    returns its launches."""
+    from boofcv_tpu_torch.feature import trackers as tr
+    frames, centres = tracker_scene()
+    half = (TRACK_SIDE - 1) / 2.0
+    specs = {
+        "circulant": (lambda f, c, d: tr.circulant_init(f, *c, size=96,
+                                                        device=d),
+                      lambda s, prev, f: tr.circulant_track(s, f), 3.0,
+                      1e-3),
+        "meanshift": (lambda f, c, d: tr.meanshift_init(f, *c, radius=24,
+                                                        device=d),
+                      lambda s, prev, f: tr.meanshift_track(s, f), 4.0,
+                      1e-3),
+        "sfot": (lambda f, c, d: tr.sfot_init(*c, TRACK_SIDE, TRACK_SIDE,
+                                              device=d),
+                 lambda s, prev, f: tr.sfot_track(prev, f, s)[0], 0.5,
+                 0.05),
+        "comaniciu": (lambda f, c, d: tr.comaniciu_init(f, *c, half, half,
+                                                        device=d),
+                      lambda s, prev, f: tr.comaniciu_track(s, f), 4.0,
+                      2.0),
+    }
+    launches = {}
+    for name, (init, step, bar, tol) in specs.items():
+        imgs = [torch.from_numpy(f).to(dev) for f in frames]
+        state = [init(imgs[0], centres[0], dev)]
+        seen = []
+
+        def process(i, state=state, seen=seen, step=step, imgs=imgs):
+            state[0] = step(state[0], imgs[i], imgs[i + 1])
+            seen.append(torch.stack([state[0].cy, state[0].cx]))
+
+        def accuracy(seen=seen, bar=bar, name=name):
+            got = torch.stack(seen).double().cpu().numpy()
+            truth = np.array(centres[:len(got) + 1])
+            errs = np.hypot(*(got - truth[1:]).T)
+            text = (f"centre error against the truth over {len(errs)} "
+                    f"frames max {errs.max():.4f} px, last {errs[-1]:.4f}")
+            if name != "sfot":
+                return f"{text} (bar {bar} px)", errs.max() < bar
+            # SFOT's bar is its JAX test's, on one step: the error of each
+            # frame's move (the drift above sums 28 of them)
+            moves = np.diff(np.vstack([truth[:1], got]), axis=0)
+            step = np.hypot(*(moves - np.array(TRACK_V)).T)
+            return (f"{text}; error of each frame's move max "
+                    f"{step.max():.4f} px (bar {bar} px)", step.max() < bar)
+        kernels = ("klt_track",) if name == "sfot" else ()
+        got = _family("trackers", f"{name} {W}x{H}", dev, process, accuracy,
+                      kernels, n_frames=SLICE_FRAMES)
+        if got:
+            launches[f"trackers {name}"] = got
+        cimgs = [torch.from_numpy(f) for f in frames]
+        cs = init(cimgs[0], centres[0], "cpu")
+        for i in range(SLICE_FRAMES):
+            cs = step(cs, cimgs[i], cimgs[i + 1])
+        gap = float(np.hypot(float(state[0].cy) - float(cs.cy),
+                             float(state[0].cx) - float(cs.cx)))
+        print(f"trackers: accuracy: {name}: the last centre on the card "
+              f"against the CPU's over the same {SLICE_FRAMES} frames "
+              f"{gap:.3e} px (bar {tol})")
+        check(gap <= tol, f"trackers: {name} differs on the card")
+    return launches
+
+
 def _same_detection(a, b, atol=1e-4) -> bool:
     """Two detector outputs agree: the same structure (None, tuples, lists,
     dicts), integers and masks equal, coordinates within ``atol``."""
@@ -4527,9 +5372,13 @@ def main() -> int:
         for phase in (phase_pose_graph, phase_spherical, phase_cloud,
                       phase_three_view, phase_sfm_uncalibrated,
                       phase_sfm_incremental, phase_binary, phase_fiducial,
-                      phase_qr, phase_calib_targets):
+                      phase_qr, phase_calib_targets, phase_ip_rest,
+                      phase_background, phase_segmentation, phase_lines,
+                      phase_template, phase_dense):
             phase(dev)
             clock(phase.__name__)
+        launches.update(phase_trackers(dev))
+        clock("phase_trackers")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1073,3 +1073,138 @@ def test_calib_targets_on_card_equal_cpu(cuda, target):
             card = fn(torch.from_numpy(views[v]).to(cuda))
             assert cpu is not None
             assert cs._same_detection(card, cpu, 1e-4)
+
+
+# ---- the rest of ip/ and feature/ ------------------------------------------
+
+def _both(fn, cuda, *arrays):
+    """fn of the same numpy inputs on the CPU and on the card (back on the
+    host)."""
+    cpu = fn(*[torch.from_numpy(np.ascontiguousarray(a)) for a in arrays])
+    card = fn(*[torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                for a in arrays])
+    return cpu, card
+
+
+def test_ip_rest_on_card_matches_cpu(cuda):
+    """Colour, equalization (no host sync), wavelets, FFT filtering and
+    MLS on the card against the CPU at 240x320."""
+    import chip_smoke as cs
+    from boofcv_tpu_torch.ip import color, enhance, fft, mls, wavelet
+    rgb = cs.smooth_rgb(240, 320, seed=1)
+    cpu, card = _both(lambda t: color.lab_to_rgb(color.rgb_to_lab(
+        t / 255.0)), cuda, rgb)
+    np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), atol=1e-5)
+    low = np.round(rgb[..., 0] * 0.3 + 80).astype(np.float32)
+    cpu, card = _both(enhance.equalize_histogram, cuda, low)
+    assert torch.equal(card.cpu(), cpu)
+    on_card = torch.from_numpy(low).to(cuda)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        enhance.equalize_histogram(on_card)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    clean, noisy = cs.denoise_scene(240, 320)
+    for rule in ("denoise_visu", "denoise_bayes", "denoise_sure"):
+        cpu, card = _both(lambda t, r=rule: getattr(wavelet, r)(t, levels=3),
+                          cuda, noisy)
+        np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(),
+                                   atol=0.05)
+    gray = rgb[..., 0]
+    tr = fft.gaussian_lowpass_transfer(240, 320, 0.2, device="cpu")
+    cpu, card = _both(lambda t: fft.filter_frequency(t, tr.to(t.device)),
+                      cuda, gray)
+    np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), atol=1e-3)
+    src = np.array([[30.0, 40], [200, 50], [120, 180], [280, 200]],
+                   np.float32)
+    dst = src + np.array([[3.0, -2], [-4, 1], [0, 5], [2, 2]], np.float32)
+    cpu, card = _both(lambda t: mls.deform(t, src, dst), cuda, gray)
+    np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), atol=0.05)
+
+
+def test_background_models_on_card_equal_cpu(cuda):
+    import chip_smoke as cs
+    from boofcv_tpu_torch.feature import background as bg
+    frames, hs, masks, home = cs.moving_background_scene(12, 8, h=120,
+                                                         w=160)
+    out = []
+    for dev in ("cpu", cuda):
+        model = bg.moving_gmm_init(home, device=dev)
+        segs = []
+        for f, hm in zip(frames, hs):
+            segs.append(bg.moving_gmm_segment(model, f, hm).cpu())
+            model = bg.moving_gmm_update(model, f, hm)
+        out.append(torch.stack(segs))
+    assert torch.equal(out[0], out[1])
+
+
+def test_segmentation_on_card_matches_cpu(cuda):
+    """SLIC (agreement share: the centre sums' order), watershed (equal)
+    and FH04 (equal) at 240x320 on both devices."""
+    import chip_smoke as cs
+    from boofcv_tpu_torch.feature import segmentation as seg
+    img, _ = cs.segmentation_scene(240, 320)
+    cpu, card = _both(lambda t: seg.slic(t, 100), cuda, img)
+    assert (card.cpu() == cpu).float().mean() >= 0.99
+    gray = img.mean(axis=2).astype(np.float32)
+    markers = np.zeros((240, 320), np.int32)
+    markers[::60, ::80] = np.arange(1, 17).reshape(4, 4)
+    cpu, card = _both(seg.watershed, cuda, gray, markers)
+    assert torch.equal(card.cpu(), cpu)
+    (lc, nc), (lg, ng) = _both(lambda t: seg.segment_fh04(t, min_size=100),
+                               cuda, img)
+    assert nc == ng and (lc == lg).mean() >= 0.99
+
+
+def test_lines_template_dense_on_card_match_cpu(cuda):
+    import chip_smoke as cs
+    from boofcv_tpu_torch.feature import dense, lines, template
+    img, _ = cs.polygon_scene(240, 320)
+    cpu, card = _both(lambda t: lines.hough_gradient(t, max_lines=5), cuda,
+                      img)
+    same_count, gap = cs._line_gap(cpu, card, 2 * 199.6 / 180)
+    assert same_count and gap <= 1.0
+    pairs = torch.randint(0, 48, (70, 64, 2),
+                          generator=torch.Generator().manual_seed(0))
+    cpu, card = _both(lambda t: lines.grid_ransac_lines(
+        t, pair_idx=pairs.to(t.device)), cuda, img)
+    assert torch.equal(cpu.valid, card.valid.cpu())
+    assert torch.equal(cpu.inliers, card.inliers.cpu())
+    noisy, tmpl, where = cs.template_scene()
+    for fn in (template.match_ssd, template.match_sad, template.match_ncc):
+        cpu, card = _both(fn, cuda, noisy, tmpl)
+        det = template.find_matches(card, max_matches=1)
+        assert (int(det.ys[0]), int(det.xs[0])) == where
+        span = float(cpu.max() - cpu.min())
+        assert float((card.cpu() - cpu).abs().max()) <= 1e-5 * span
+    cpu, card = _both(dense.hog, cuda, noisy[:240, :320])
+    assert float((card.cpu() - cpu).abs().max()) <= 1e-5
+
+
+def test_trackers_on_card_match_cpu(cuda):
+    """Ten frames of ``chip_smoke.tracker_scene`` through each tracker on
+    both devices; SFOT launches ``klt_track`` once a frame."""
+    import chip_smoke as cs
+    from boofcv_tpu_torch.feature import trackers as tr
+    frames, centres = cs.tracker_scene(n=11)
+    half = (cs.TRACK_SIDE - 1) / 2.0
+    runs = {}
+    for dev in ("cpu", cuda):
+        imgs = [torch.from_numpy(f).to(dev) for f in frames]
+        kt.reset_launch_count()
+        states = [tr.circulant_init(imgs[0], *centres[0], size=96),
+                  tr.meanshift_init(imgs[0], *centres[0], radius=24),
+                  tr.sfot_init(*centres[0], cs.TRACK_SIDE, cs.TRACK_SIDE,
+                               device=dev),
+                  tr.comaniciu_init(imgs[0], *centres[0], half, half)]
+        for i in range(10):
+            states = [tr.circulant_track(states[0], imgs[i + 1]),
+                      tr.meanshift_track(states[1], imgs[i + 1]),
+                      tr.sfot_track(imgs[i], imgs[i + 1], states[2])[0],
+                      tr.comaniciu_track(states[3], imgs[i + 1])]
+        runs[str(dev)] = [(float(s.cy), float(s.cx)) for s in states]
+        if dev != "cpu":
+            assert kt.launch_count() == 10
+    for (a, b), tol in zip(zip(runs["cpu"], runs[str(cuda)]),
+                           (1e-3, 1e-3, 0.05, 2.0)):
+        assert np.hypot(a[0] - b[0], a[1] - b[1]) <= tol
