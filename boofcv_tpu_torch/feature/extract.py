@@ -38,18 +38,23 @@ def _window_max(intensity: torch.Tensor, radius: int) -> torch.Tensor:
 
 
 def nonmax_mask(intensity: torch.Tensor, radius: int = 2,
-                threshold: float = 0.0, border: int = 0) -> torch.Tensor:
-    """Boolean local-maximum mask (NonMaxBlock strict semantics): equal to
-    the window max and above threshold, plateau ties broken by raster order
-    through the reference's epsilon ramp."""
+                threshold: float = 0.0, border: int = 0,
+                strict: bool = True) -> torch.Tensor:
+    """Boolean local-maximum mask: equal to the window max and above
+    threshold.  ``strict`` (NonMaxBlock's strict semantics) breaks plateau
+    ties by raster order through the reference's epsilon ramp, which also
+    drops a peak whose raster-earlier neighbour is within the ramp's
+    epsilon of it; ``strict=False`` keeps every pixel equal to its window
+    max."""
     h, w = intensity.shape[-2:]
     wmax = _window_max(intensity, radius)
     mask = (intensity >= wmax) & (intensity > threshold)
-    ramp = torch.arange(h * w, dtype=torch.float32,
-                        device=intensity.device).reshape(h, w)
-    eps = torch.finfo(torch.float32).eps
-    tie = intensity - ramp * eps * torch.clamp(intensity.abs(), min=1.0)
-    mask = mask & (tie >= _window_max(tie, radius))
+    if strict:
+        ramp = torch.arange(h * w, dtype=torch.float32,
+                            device=intensity.device).reshape(h, w)
+        eps = torch.finfo(torch.float32).eps
+        tie = intensity - ramp * eps * torch.clamp(intensity.abs(), min=1.0)
+        mask = mask & (tie >= _window_max(tie, radius))
     if border > 0:
         edge = torch.zeros((h, w), dtype=torch.bool, device=mask.device)
         edge[border:h - border, border:w - border] = True

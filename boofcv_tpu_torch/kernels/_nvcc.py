@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher; it is
 compiled for Hopper (``sm_90a``) into a shared library under ``_build/``
 (git-ignored, keyed by a hash of the source and flags) and loaded with
-``ctypes``.  No PyTorch headers are compiled, so a build takes seconds.
+``ctypes``.  ptxas's report (``-Xptxas -v``: registers, spills) is kept
+beside the library as ``<library>.ptxas.txt``.  No PyTorch headers are compiled, so a build takes seconds.
 
 A failed build raises: there is no fallback to the plain PyTorch version
 on a CUDA tensor.
@@ -70,14 +71,20 @@ def load_library(name: str):
                 raise RuntimeError(
                     f"nvcc failed building {src} (exit {proc.returncode}):\n"
                     f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+            # registers, shared memory and spills of each kernel
+            with open(tmp + ".ptxas.txt", "w") as f:
+                f.write(proc.stderr.strip())
+            os.replace(tmp + ".ptxas.txt", out + ".ptxas.txt")
             os.replace(tmp, out)   # atomic: concurrent builds agree
         finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+            for path in (tmp, tmp + ".ptxas.txt"):
+                if os.path.exists(path):
+                    os.remove(path)
         record["built"] = True
-        # registers, shared memory and spills of each kernel (-Xptxas -v)
-        record["ptxas"] = proc.stderr.strip()
         record["build_s"] = time.perf_counter() - t0
+    if os.path.exists(out + ".ptxas.txt"):
+        with open(out + ".ptxas.txt") as f:
+            record["ptxas"] = f.read()
     lib = ctypes.CDLL(out)
     _LIBS[name] = (lib, record)
     return lib
@@ -86,5 +93,5 @@ def load_library(name: str):
 def build_record(name: str) -> dict:
     """What :func:`load_library` did for ``name``: library path, arch
     flags, all nvcc flags, whether it compiled in this process, how long
-    it took and what ptxas reported."""
+    it took and what ptxas reported when it was built."""
     return dict(_LIBS[name][1])

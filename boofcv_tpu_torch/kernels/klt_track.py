@@ -16,11 +16,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import struct
+import threading
 from typing import Sequence
 
 import torch
 
-from boofcv_tpu_torch.kernels.window_gather import plane_stride
+from boofcv_tpu_torch.kernels.window_gather import (call_on_device,
+                                                    plane_stride)
 
 MAX_LEVELS = 8    # KLT_MAX_LEVELS in csrc/klt_track.cu
 MAX_RADIUS = 7    # 15x15 patch: eight pixels per lane
@@ -63,15 +66,46 @@ class _Params(ctypes.Structure):
                 ("convergence_tol", ctypes.c_float)]
 
 
+class _Buffers(ctypes.Structure):
+    """``KltBuffers`` of csrc/klt_track.cu."""
+    _fields_ = [(name, ctypes.c_void_p) for name in
+                ("ys", "xs", "out_y", "out_x", "out_fault", "out_evals")]
+
+
+# Each struct is filled in one struct.pack_into, field order and sizes as
+# above (checked against ctypes' layout at import); each thread keeps its
+# own, and its next launch reuses them.
+_LEVELS_FMT = struct.Struct(f"=32Q{MAX_LEVELS}q{MAX_LEVELS}i{MAX_LEVELS}i"
+                            f"{MAX_LEVELS}ffi")
+_PARAMS_FMT = struct.Struct("=4i3f")
+_BUFFERS_FMT = struct.Struct("=6Q")
+assert _LEVELS_FMT.size == ctypes.sizeof(_Levels)
+assert _PARAMS_FMT.size == ctypes.sizeof(_Params)
+assert _BUFFERS_FMT.size == ctypes.sizeof(_Buffers)
+_TLS = threading.local()
+_F32 = torch.float32
+
+
+def _launch_structs():
+    """This thread's (KltLevels, KltParams, KltBuffers) and their
+    ``byref``s."""
+    s = getattr(_TLS, "structs", None)
+    if s is None:
+        structs = (_Levels(), _Params(), _Buffers())
+        s = _TLS.structs = (structs,
+                            tuple(ctypes.byref(x) for x in structs))
+    return s
+
+
 @functools.cache
 def _kernel_lib():
     """Build (at first use) and load the kernel; declare its C ABI."""
     from boofcv_tpu_torch.kernels._nvcc import load_library
     lib = load_library("klt_track")
-    vp = ctypes.c_void_p
     lib.klt_track_launch.argtypes = [ctypes.POINTER(_Levels),
-                                     ctypes.POINTER(_Params), vp, vp, vp, vp,
-                                     vp, vp, vp]
+                                     ctypes.POINTER(_Params),
+                                     ctypes.POINTER(_Buffers),
+                                     ctypes.c_void_p]
     lib.klt_track_launch.restype = ctypes.c_int
     lib.klt_track_error_string.argtypes = [ctypes.c_int]
     lib.klt_track_error_string.restype = ctypes.c_char_p
@@ -90,6 +124,110 @@ def _check(name: str, t: torch.Tensor, shape, dev: torch.device):
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _explain(pyramid, desc, grad_x, grad_y, ys, xs, n_levels, p) -> None:
+    """Raise the ValueError that names what the fast checks of
+    :func:`klt_track_cuda` refused."""
+    dev = ys.device
+    for name, seq in (("pyramid", pyramid), ("desc", desc),
+                      ("grad_x", grad_x), ("grad_y", grad_y)):
+        if len(seq) != n_levels:
+            raise ValueError(f"{name} has {len(seq)} levels, scales "
+                             f"{n_levels}")
+    if ys.dim() not in (1, 2):
+        raise ValueError(f"ys must be [N] or [B, N], got {tuple(ys.shape)}")
+    shape = tuple(ys.shape)
+    _check("ys", ys, shape, dev)
+    _check("xs", xs, shape, dev)
+    for l in range(n_levels):
+        img = pyramid[l]
+        if not isinstance(img, torch.Tensor):
+            raise ValueError(f"pyramid[{l}] must be a tensor, got "
+                             f"{type(img).__name__}")
+        if img.device != dev:
+            raise ValueError(f"pyramid[{l}] on {img.device}, ys on {dev}")
+        plane_stride(f"pyramid[{l}]", img)
+        if img.shape[:-2] != shape[:-1]:
+            raise ValueError(f"pyramid[{l}] is {tuple(img.shape)} for ys "
+                             f"{shape}")
+        for name, seq in (("desc", desc), ("grad_x", grad_x),
+                          ("grad_y", grad_y)):
+            _check(f"{name}[{l}]", seq[l], shape + (p, p), dev)
+    raise ValueError("klt_track_cuda: inputs refused")  # not reached
+
+
+def _pack(pyramid, desc, grad_x, grad_y, ys, xs, scales, template_radius,
+          max_iterations, max_per_pixel_error, min_determinant,
+          convergence_tol) -> tuple:
+    """Check the arguments of :func:`klt_track_cuda` (on any device: the
+    tensors must share ``ys``'s) and fill this thread's ``KltLevels`` and
+    ``KltParams`` (:func:`_launch_structs`) from them.  Returns (ys's
+    device index, ys's shape, tracks in all); raises ValueError on
+    anything the kernel does not take."""
+    n_levels = len(scales)
+    if not 1 <= n_levels <= MAX_LEVELS:
+        raise ValueError(f"{n_levels} pyramid levels: the kernel takes 1 to "
+                         f"{MAX_LEVELS}")
+    if not 1 <= template_radius <= MAX_RADIUS:
+        raise ValueError(f"template_radius {template_radius}: the kernel "
+                         f"takes 1 to {MAX_RADIUS}")
+    if max_iterations < 0:
+        raise ValueError(f"max_iterations {max_iterations} is negative")
+    p = 2 * template_radius + 1
+    # fast checks, one pass; anything refused is explained by _explain
+    idx = ys.get_device()
+    shape = ys.shape
+    lead = shape[:-1]
+    tshape = shape + (p, p)
+    ptrs = [0] * (4 * MAX_LEVELS)
+    geo = [0] * (3 * MAX_LEVELS)
+    f32 = _F32
+    try:
+        ok = (len(pyramid) == n_levels and len(desc) == n_levels
+              and len(grad_x) == n_levels and len(grad_y) == n_levels
+              and 1 <= len(shape) <= 2 and xs.shape == shape
+              and ys.dtype is f32 and xs.dtype is f32
+              and xs.get_device() == idx and ys.is_contiguous()
+              and xs.is_contiguous())
+        for l in range(n_levels if ok else 0):
+            img, d, g1, g2 = pyramid[l], desc[l], grad_x[l], grad_y[l]
+            ish = img.shape
+            h, w = ish[-2:]
+            st = img.stride()
+            stride = 0 if len(ish) == 2 or ish[0] == 1 else st[0]
+            if not (img.dtype is f32 and d.dtype is f32 and g1.dtype is f32
+                    and g2.dtype is f32 and img.get_device() == idx
+                    and d.get_device() == idx and g1.get_device() == idx
+                    and g2.get_device() == idx and ish[:-2] == lead
+                    and ish.numel() > 0 and st[-1] == 1 and st[-2] == w
+                    and (stride == 0 or stride == h * w)
+                    and d.shape == tshape and g1.shape == tshape
+                    and g2.shape == tshape and d.is_contiguous()
+                    and g1.is_contiguous() and g2.is_contiguous()):
+                ok = False
+                break
+            ptrs[l] = img.data_ptr()
+            ptrs[MAX_LEVELS + l] = d.data_ptr()
+            ptrs[2 * MAX_LEVELS + l] = g1.data_ptr()
+            ptrs[3 * MAX_LEVELS + l] = g2.data_ptr()
+            geo[l] = stride
+            geo[MAX_LEVELS + l] = h
+            geo[2 * MAX_LEVELS + l] = w
+    except (AttributeError, TypeError, ValueError):
+        ok = False
+    if not ok:
+        _explain(pyramid, desc, grad_x, grad_y, ys, xs, n_levels, p)
+    ratio = [scales[l] / scales[l - 1] if 0 < l < n_levels else 1.0
+             for l in range(MAX_LEVELS)]
+    (lv, prm, _), _ = _launch_structs()
+    _LEVELS_FMT.pack_into(lv, 0, *ptrs, *geo, *ratio, float(scales[-1]),
+                          n_levels)
+    n = ys.numel()
+    _PARAMS_FMT.pack_into(prm, 0, n, shape[-1], template_radius,
+                          max_iterations, max_per_pixel_error,
+                          min_determinant, convergence_tol)
+    return idx, shape, n
 
 
 def klt_track_cuda(pyramid: Sequence[torch.Tensor],
@@ -114,70 +252,25 @@ def klt_track_cuda(pyramid: Sequence[torch.Tensor],
     patch evaluations each track ran, summed over the levels (what the
     kernel's arithmetic bound is counted from)."""
     global _launches
-    if not isinstance(ys, torch.Tensor) or ys.device.type != "cuda":
+    if not isinstance(ys, torch.Tensor) or not ys.is_cuda:
         raise ValueError(f"klt_track_cuda needs CUDA tensors, got ys on "
                          f"{getattr(ys, 'device', type(ys).__name__)}")
-    dev = ys.device
-    n_levels = len(scales)
-    if not 1 <= n_levels <= MAX_LEVELS:
-        raise ValueError(f"{n_levels} pyramid levels: the kernel takes 1 to "
-                         f"{MAX_LEVELS}")
-    if not 1 <= template_radius <= MAX_RADIUS:
-        raise ValueError(f"template_radius {template_radius}: the kernel "
-                         f"takes 1 to {MAX_RADIUS}")
-    if max_iterations < 0:
-        raise ValueError(f"max_iterations {max_iterations} is negative")
-    for name, seq in (("pyramid", pyramid), ("desc", desc),
-                      ("grad_x", grad_x), ("grad_y", grad_y)):
-        if len(seq) != n_levels:
-            raise ValueError(f"{name} has {len(seq)} levels, scales "
-                             f"{n_levels}")
-    if ys.dim() not in (1, 2):
-        raise ValueError(f"ys must be [N] or [B, N], got {tuple(ys.shape)}")
-    shape = tuple(ys.shape)
-    p = 2 * template_radius + 1
-    _check("ys", ys, shape, dev)
-    _check("xs", xs, shape, dev)
-    lv = _Levels()
-    for l in range(n_levels):
-        img = pyramid[l]
-        if not isinstance(img, torch.Tensor):
-            raise ValueError(f"pyramid[{l}] must be a tensor, got "
-                             f"{type(img).__name__}")
-        if img.device != dev:
-            raise ValueError(f"pyramid[{l}] on {img.device}, ys on {dev}")
-        lv.stride[l] = plane_stride(f"pyramid[{l}]", img)
-        if img.shape[:-2] != shape[:-1]:
-            raise ValueError(f"pyramid[{l}] is {tuple(img.shape)} for ys "
-                             f"{shape}")
-        lv.img[l] = img.data_ptr()
-        lv.h[l], lv.w[l] = img.shape[-2:]
-        for name, seq, field in (("desc", desc, lv.desc),
-                                 ("grad_x", grad_x, lv.gx),
-                                 ("grad_y", grad_y, lv.gy)):
-            _check(f"{name}[{l}]", seq[l], shape + (p, p), dev)
-            field[l] = seq[l].data_ptr()
-        lv.ratio[l] = scales[l] / scales[l - 1] if l > 0 else 1.0
-    lv.top_scale = float(scales[-1])
-    lv.n_levels = n_levels
-    n = ys.numel()
-    prm = _Params(n, shape[-1], template_radius, max_iterations,
-                  max_per_pixel_error, min_determinant, convergence_tol)
-
-    out_y = torch.empty(shape, dtype=torch.float32, device=dev)
-    out_x = torch.empty(shape, dtype=torch.float32, device=dev)
-    fault = torch.empty(shape, dtype=torch.int32, device=dev)
-    evals = torch.empty(shape, dtype=torch.int32, device=dev)
+    idx, shape, n = _pack(pyramid, desc, grad_x, grad_y, ys, xs, scales,
+                          template_radius, max_iterations,
+                          max_per_pixel_error, min_determinant,
+                          convergence_tol)
+    # one allocation for the four outputs: y, x, fault, evals
+    out = torch.empty((4,) + tuple(shape), dtype=_F32, device=ys.device)
+    out_y, out_x, fault, evals = out.unbind(0)
     if n > 0:
         lib = _kernel_lib()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.klt_track_launch(
-                ctypes.byref(lv), ctypes.byref(prm), ys.data_ptr(),
-                xs.data_ptr(), out_y.data_ptr(), out_x.data_ptr(),
-                fault.data_ptr(), evals.data_ptr(), stream)
+        base = out.data_ptr()
+        (_, _, buf), refs = _launch_structs()
+        _BUFFERS_FMT.pack_into(buf, 0, ys.data_ptr(), xs.data_ptr(), base,
+                               base + 4 * n, base + 8 * n, base + 12 * n)
+        err = call_on_device(idx, lib.klt_track_launch, *refs)
         if err != 0:
             msg = lib.klt_track_error_string(err).decode()
             raise RuntimeError(f"klt_track launch failed: {msg} ({err})")
         _launches += 1
-    return out_y, out_x, fault, evals
+    return out_y, out_x, fault.view(torch.int32), evals.view(torch.int32)

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import struct
+import threading
 
 import torch
 
@@ -53,14 +55,40 @@ def gather_windows_reference(image: torch.Tensor, oy: torch.Tensor,
         -1, flat.reshape(lead + (-1,))).reshape(flat.shape)
 
 
+class _Args(ctypes.Structure):
+    """``WindowGatherArgs`` of csrc/window_gather.cu."""
+    _fields_ = [("img", ctypes.c_void_p), ("img_stride", ctypes.c_longlong),
+                ("h", ctypes.c_int), ("w", ctypes.c_int),
+                ("oy", ctypes.c_void_p), ("ox", ctypes.c_void_p),
+                ("n", ctypes.c_int), ("per_image", ctypes.c_int),
+                ("wy", ctypes.c_int), ("wx", ctypes.c_int),
+                ("out", ctypes.c_void_p)]
+
+
+# Filled in one struct.pack_into a launch (field order and sizes as above,
+# checked against ctypes' layout at import); each thread keeps its own, and
+# its next launch reuses it.
+_ARGS_FMT = struct.Struct("=QqiiQQiiiiQ")
+assert _ARGS_FMT.size == ctypes.sizeof(_Args)
+_TLS = threading.local()
+
+
+def _launch_args():
+    """This thread's launch struct and its ``byref``."""
+    a = getattr(_TLS, "args", None)
+    if a is None:
+        a = _Args()
+        a = _TLS.args = (a, ctypes.byref(a))
+    return a
+
+
 @functools.cache
 def _kernel_lib():
     """Build (at first use) and load the kernel; declare its C ABI."""
     from boofcv_tpu_torch.kernels._nvcc import load_library
     lib = load_library("window_gather")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.window_gather_launch.argtypes = [vp, ctypes.c_longlong, ci, ci, vp,
-                                         vp, ci, ci, ci, ci, vp, vp]
+    lib.window_gather_launch.argtypes = [ctypes.POINTER(_Args), vp]
     lib.window_gather_launch.restype = ci
     lib.window_gather_empty_launch.argtypes = [ci, ci, ci, vp]
     lib.window_gather_empty_launch.restype = ci
@@ -105,17 +133,11 @@ def as_planes(image: torch.Tensor) -> torch.Tensor:
     return image.contiguous()
 
 
-def gather_windows_cuda(image: torch.Tensor, oy: torch.Tensor,
-                        ox: torch.Tensor, wy: int, wx: int) -> torch.Tensor:
-    """Launch the CUDA kernel, once.  image: [h, w] float32 with oy, ox: [N]
-    int32, or [B, h, w] (a contiguous stack, or one frame expanded over B)
-    with oy, ox: [B, N]; origins contiguous; all on one CUDA device.  Raises
-    on anything else and on a failed launch."""
-    global _launches
-    if image.device.type != "cuda":
-        raise ValueError(f"gather_windows_cuda needs CUDA tensors, got "
-                         f"image on {image.device}")
-    stride = plane_stride("image", image)
+def _explain(image: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
+             wy: int, wx: int) -> None:
+    """Raise the ValueError that names what the fast checks of
+    :func:`gather_windows_cuda` refused."""
+    plane_stride("image", image)
     want = "[B, N]" if image.dim() == 3 else "[N]"
     for name, o in (("oy", oy), ("ox", ox)):
         if o.dim() != image.dim() - 1 or o.dtype != torch.int32:
@@ -132,18 +154,78 @@ def gather_windows_cuda(image: torch.Tensor, oy: torch.Tensor,
                          f"{tuple(image.shape)} images")
     if wy <= 0 or wx <= 0:
         raise ValueError(f"window {wy}x{wx} must be positive")
-    h, w = image.shape[-2:]
-    out = torch.empty(tuple(oy.shape) + (wy, wx), dtype=torch.float32,
-                      device=image.device)
-    if oy.numel() == 0:
+    raise ValueError("gather_windows_cuda: inputs refused")  # not reached
+
+
+def _raw_stream(index: int) -> int:
+    """The current CUDA stream of device ``index`` as an integer."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def call_on_device(index: int, launch, *args) -> int:
+    """``launch(*args, stream)``, a C launcher, with CUDA device ``index``
+    current and its current stream; returns what the launcher returns."""
+    if torch.cuda.current_device() == index:
+        return launch(*args, _raw_stream(index))
+    with torch.cuda.device(index):
+        return launch(*args, _raw_stream(index))
+
+
+def _gather_geometry(image: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
+                     wy: int, wx: int) -> tuple:
+    """Check the arguments of :func:`gather_windows_cuda` (on any device:
+    the origins must share the image's).  Returns (the image's device
+    index, (plane stride, h, w, windows an image), the output's shape);
+    raises ValueError on anything the kernel does not take."""
+    # fast checks, one pass; anything refused is explained by _explain
+    try:
+        ish = image.shape
+        st = image.stride()
+        nd = len(ish)
+        h, w = ish[-2:]
+        stride = 0 if nd == 2 or ish[0] == 1 else st[0]
+        osh = oy.shape
+        idx = image.get_device()
+        ok = (image.dtype is torch.float32 and (nd == 2 or nd == 3)
+              and ish.numel() > 0 and st[-1] == 1 and st[-2] == w
+              and (stride == 0 or stride == h * w)
+              and oy.dtype is torch.int32 and ox.dtype is torch.int32
+              and len(osh) == nd - 1 and ox.shape == osh
+              and osh[:-1] == ish[:-2] and oy.get_device() == idx
+              and ox.get_device() == idx and oy.is_contiguous()
+              and ox.is_contiguous() and wy > 0 and wx > 0)
+    except (AttributeError, TypeError, ValueError):
+        ok = False
+    if not ok:
+        _explain(image, oy, ox, wy, wx)
+    return idx, (stride, h, w, osh[-1]), tuple(osh) + (wy, wx)
+
+
+def gather_windows_cuda(image: torch.Tensor, oy: torch.Tensor,
+                        ox: torch.Tensor, wy: int, wx: int) -> torch.Tensor:
+    """Launch the CUDA kernel, once.  image: [h, w] float32 with oy, ox: [N]
+    int32, or [B, h, w] (a contiguous stack, or one frame expanded over B)
+    with oy, ox: [B, N]; origins contiguous; all on one CUDA device.  Raises
+    on anything else and on a failed launch."""
+    global _launches
+    if not image.is_cuda:
+        raise ValueError(f"gather_windows_cuda needs CUDA tensors, got "
+                         f"image on {image.device}")
+    idx, geometry, shape = _gather_geometry(image, oy, ox, wy, wx)
+    out = torch.empty(shape, dtype=torch.float32, device=image.device)
+    n = oy.numel()
+    if n == 0:
         return out
     lib = _kernel_lib()
-    with torch.cuda.device(image.device):
-        stream = torch.cuda.current_stream(image.device).cuda_stream
-        err = lib.window_gather_launch(image.data_ptr(), stride, h, w,
-                                       oy.data_ptr(), ox.data_ptr(),
-                                       oy.numel(), oy.shape[-1], wy, wx,
-                                       out.data_ptr(), stream)
+    stride, h, w, per_image = geometry
+    args, ref = _launch_args()
+    _ARGS_FMT.pack_into(args, 0, image.data_ptr(), stride, h, w,
+                        oy.data_ptr(), ox.data_ptr(), n, per_image, wy, wx,
+                        out.data_ptr())
+    err = call_on_device(idx, lib.window_gather_launch, ref)
     if err != 0:
         msg = lib.window_gather_error_string(err).decode()
         raise RuntimeError(f"window_gather launch failed: {msg} ({err})")

@@ -13,7 +13,8 @@ Phases, each printed on its own line(s); any failure exits non-zero:
 2. build: both kernels (``window_gather``, ``klt_track``) from
    ``boofcv_tpu_torch/kernels/csrc``, one ``nvcc`` each, and the native
    host library (``boofcv_tpu_torch/native/ccl.cpp`` and ``merge.cpp``,
-   one ``g++``), started together;
+   one ``g++``), started together; ptxas's registers, spills and stack
+   frame of every kernel instantiation;
 3. each kernel vs its plain version on the card at the main path's shapes.
    ``window_gather`` (KLT 512 windows of 24x16 on every pyramid level of
    640x480, sparse-SAD strips 7x102 and 7x7 with negative columns and rows
@@ -26,7 +27,8 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    calls: the rate at which the host can launch them) and from the profiler
    (the kernel's own time on the device), each beside its bound, and for
    the two sparse-SAD shapes beside an empty launch of the same grid (a
-   kernel in ``window_gather.cu`` that returns at once);
+   kernel in ``window_gather.cu`` that returns at once); ``klt_track``'s
+   device time on the first 1, 2 and 4 levels of the main scene;
 4. the slice at full width: the 640x480 reference scene (41 frames) through
    ``StereoVisualOdometry`` with the default config (512 tracks, pyramid
    1/2/4/8, disparity 0-96, 256 RANSAC hypotheses), checked against the
@@ -39,7 +41,10 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    their plain versions and against 2-D launches on each stream's data
    (bit-equal): ``window_gather`` at [8, 512] origins for 7x102 and 7x7,
    ``klt_track`` at [8, 512] tracks on 8 different frames and on one frame
-   shared by the streams (stride 0); times and bounds at B = 8 and 16;
+   shared by the streams (stride 0), and at [64, 512] and [256, 512] on the
+   shared frame (the batched runner's shapes; the gather's 7x102 strips
+   too, beside ``F.grid_sample``); times and bounds at B = 8, 16, 64 and
+   256;
 7. the B-stream path at full width: batched bootstrap and
    ``make_batched_sequence_runner(shared_frames=True)`` over 12 frames for
    B = 4, 8, 16 (and 1, 32, 64, 128, 256, to see where the aggregate rate
@@ -177,10 +182,35 @@ Phases, each printed on its own line(s); any failure exits non-zero:
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+
+    python3 chip_smoke.py --sweep [--baseline [TAG=]DIR ...] [--out DIR]
+
+times the two hand kernels alone, shape by shape, and nothing else:
+device ms of one launch (the profiler's median kernel time, ``device_ms``),
+ms a call over 200 back-to-back calls through the wrapper (CUDA events:
+the host's launch rate) and the bound (``bound``), for ``window_gather`` at
+[512] windows of 7x102, 7x7 and 24x16, [16, 512] 7x102 on 16 frames,
+[64, 512] and [256, 512] on one shared frame (each bit-equal to the plain
+version; an empty launch of each grid beside it), and ``klt_track`` at
+[512] tracks on 4 levels of 640x480 (also on 1 and 2 levels, and with the
+iteration cap at 1, 2 and 4), [4, 512], [8, 512] and [16, 512] on as many
+frames, [64, 512] and [256, 512] on one shared frame.  ``klt_track`` runs
+on this tree as it ships and built with each of its two Gauss-Newton loops
+at every track count (``single_loop``, ``split_loop``: where they cross is
+the kernel's ``KLT_SPLIT_ABOVE``).  ``--baseline DIR`` (repeatable) is
+another checkout of the repository (for example the parent commit,
+unpacked with ``git archive``): its kernel package is imported beside this
+tree's and builds its own kernels, so each shape is timed through each
+tree's own wrapper, in turns (baseline, this tree, this tree, baseline) in
+one process on one card, with each tree's faults, positions and windows
+compared bit for bit with this tree's.  Each library's ``cuobjdump -sass``
+and ptxas report go under ``--out`` (default
+``boofcv_tpu_torch/kernels/_build/sweep``, git-ignored).
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import concurrent.futures
 import json
@@ -371,6 +401,44 @@ def _timed_native_build() -> float:
     return time.perf_counter() - t0
 
 
+def _short_kernel_name(mangled: str) -> str:
+    """A kernel's name from ptxas's mangled one: the name and its integer,
+    bool and index-type template arguments
+    (``klt_track_kernel<24,16,20,2,true>``)."""
+    import re
+    m = re.search(r"(\d+)([a-z_]+_kernel)(I.*?E)?(?:v|E|P|S|N|\d|$)",
+                  mangled)
+    if not m:
+        return mangled
+    tmpl = m.group(3) or ""
+    args = [v if t == "i" else ("true" if v == "1" else "false")
+            for t, v in re.findall(r"L([ib])(\d+)E", tmpl)]
+    args += {"iE": ["int"], "xE": ["long long"]}.get(tmpl[-2:], [])
+    return m.group(2) + (f"<{','.join(args)}>" if args else "")
+
+
+def ptxas_summary(text: str) -> list:
+    """(kernel, registers, spill stores, spill loads, stack frame bytes) of
+    each entry function in ``nvcc -Xptxas -v``'s report."""
+    import re
+    out, fn, frame = [], None, (0, 0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = _short_kernel_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = tuple(int(v) for v in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            out.append((fn, int(m.group(1)), frame[1], frame[2], frame[0]))
+            fn = None
+    return out
+
+
 def phase_build():
     """Both kernels, one nvcc each, and the native host library (g++),
     started together."""
@@ -390,9 +458,13 @@ def phase_build():
         rec = _nvcc.build_record(name)
         print(f"build: {name} built={rec['built']} "
               f"nvcc_s={rec['build_s']:.3f} flags={' '.join(rec['flags'])}")
-        for line in rec["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"build: {name} ptxas: {line.strip()}")
+        if not rec["ptxas"]:
+            print(f"build: {name} ptxas: not measured (no report beside "
+                  f"the library)")
+        for fn, regs, stores, loads, stack in ptxas_summary(rec["ptxas"]):
+            print(f"build: {name} ptxas: {fn} registers={regs} "
+                  f"spill_stores={stores} spill_loads={loads} "
+                  f"stack_frame={stack}")
     print(f"build: both kernels and the native library built and loaded in "
           f"{wall:.3f}s")
 
@@ -488,7 +560,7 @@ def phase_kernel(dev) -> dict:
                           "window_gather_empty_kernel")
         sad[sname]["empty_launch_device_ms"] = empty
         print(f"kernel: window_gather {sname} an empty launch of the same "
-              f"grid ({n} blocks): device_ms={empty:.6f} (profiler); the "
+              f"grid ({n} windows'): device_ms={empty:.6f} (profiler); the "
               f"gather's {sad[sname]['device_ms']:.6f} is "
               f"{sad[sname]['device_ms'] / empty:.2f}x that")
     # top level: the larger of the two shapes the main path launches; the
@@ -692,6 +764,21 @@ def phase_klt_kernel(dev, frames) -> dict:
                     "plain_device_ms": plain_dev_ms,
                     "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
                     "library_ms": None})
+        # the level sweep: the same tracks on the first 1, 2 and 4 levels
+        # (a level adds a window fetch and up to max_iterations evaluations
+        # to every track's chain)
+        by_levels = {}
+        for k in (1, 2, 4):
+            sub = (args[0][:k], args[1][:k], args[2][:k], args[3][:k], ys,
+                   xs, scales[:k]) + args[7:]
+            ev = int(kt.klt_track_cuda(*sub)[3].sum())
+            t_k = device_ms(lambda: kt.klt_track_cuda(*sub), 50,
+                            "klt_track_kernel")
+            by_levels[k] = {"device_ms": t_k, "evaluations": ev}
+            print(f"kernel: klt_track {name} levels={k} device_ms={t_k:.6f} "
+                  f"(profiler) evaluations={ev} ({ev / n / k:.3f} a track "
+                  f"and level)")
+        out["device_ms_by_levels"] = by_levels
     out["max_abs_err"] = max(out.pop("main_480x640"),
                              out.pop("small_128x160"))
     return out
@@ -1093,68 +1180,108 @@ def phase_batched_kernels(dev, frames) -> dict:
             f"window_gather batched {name} origins=[{b}, 512] on {b} frames",
             bnd, t)
 
-    # klt_track: [B, 512] tracks, B different frames and one shared frame
+    # the batched runner's shapes: [64, 512] and [256, 512] strips on one
+    # shared frame
+    g2 = torch.Generator(device=dev).manual_seed(2)
+    ys2 = torch.randint(0, H, (256, 512), generator=g2, device=dev,
+                        dtype=torch.int32)
+    xs2 = torch.randint(0, W, (256, 512), generator=g2, device=dev,
+                        dtype=torch.int32)
+    for b in (64, 256):
+        imgs = lefts[0].expand(b, H, W)
+        oyb, oxb = (ys2[:b] - 3).contiguous(), (xs2[:b] - 3 - 95).contiguous()
+        got = wg.gather_windows_cuda(imgs, oyb, oxb, wy, wx)
+        want = wg.gather_windows_reference(imgs, oyb, oxb, wy, wx)
+        per_stream = all(torch.equal(got[i], wg.gather_windows_cuda(
+            lefts[0], oyb[i], oxb[i], wy, wx)) for i in range(b))
+        torch.cuda.synchronize()
+        print(f"kernel: window_gather batched {name} shared origins=[{b}, "
+              f"512] equal_plain={torch.equal(got, want)} "
+              f"streams_equal_2d_launches={per_stream}")
+        check(torch.equal(got, want) and per_stream,
+              f"batched window_gather differs at [{b}, 512] shared")
+        del got
+        bnd = bound(touched_bytes(H, W, oyb, oxb, wy, wx, shared=True)
+                    + 4 * b * 512 * wy * wx + 8 * b * 512, 0)
+        lib = grid_sample_call(imgs, oyb, oxb, wy, wx)
+        _check_grid_sample(f"batched {name} origins=[{b}, 512] shared", lib,
+                           want)
+        del want
+        t = _times(lambda: wg.gather_windows_cuda(imgs, oyb, oxb, wy, wx),
+                   lambda: wg.gather_windows_reference(imgs, oyb, oxb, wy,
+                                                       wx),
+                   "window_gather_kernel", 8, library=lib)
+        out["window_gather"][f"B{b}_shared_{name}"] = _print_times(
+            f"window_gather batched {name} origins=[{b}, 512] on one shared "
+            f"frame", bnd, t)
+        del lib
+        torch.cuda.empty_cache()
+
+    # klt_track: [B, 512] tracks, B different frames and one shared frame;
+    # at B = 64 and 256 (the batched runner's) on the shared frame
     cfg = klt.KltConfig()
     max_err = 0.0
-    for b in (8, 16):
-        for mode in ("frames", "shared"):
-            if mode == "frames":      # stream i: frame i -> frame i + 1
-                scene = _klt_case_scene(dev, lefts[:b], lefts[1:b + 1])
-            else:                     # every stream: frame 0 -> frame 1
-                jitter = torch.rand((b, 464), device=dev, generator=g) - 0.5
-                scene = _klt_case_scene(dev, lefts[0].expand(b, H, W),
-                                        lefts[1].expand(b, H, W), jitter)
-            pyr, tm, ys_, xs_, scales = scene
-            check(all((p.stride(0) == 0) == (mode == "shared") for p in pyr),
-                  f"the {mode} pyramid has the other layout")
-            what = f"klt_track batched tracks=[{b}, 512] {mode}"
-            if b == 8:
-                before = kt.launch_count()
-                gy, gx, gf = klt.track_pyramid(pyr, tm, ys_, xs_, scales, cfg)
-                check(kt.launch_count() == before + 1,
-                      "a batched track_pyramid did not launch klt_track once")
-                wy_, wx_, wf = klt.track_pyramid_reference(pyr, tm, ys_, xs_,
-                                                           scales, cfg)
-                per_stream = True
-                for i in range(b):
-                    one = klt.KltTemplates(*(tuple(t[i] for t in seq)
-                                             for seq in tm))
-                    oy_, ox_, of = klt.track_pyramid(
-                        tuple(p[i] for p in pyr), one, ys_[i], xs_[i], scales,
-                        cfg)
-                    per_stream &= (torch.equal(gy[i], oy_)
-                                   and torch.equal(gx[i], ox_)
-                                   and torch.equal(gf[i], of))
-                torch.cuda.synchronize()
-                n = gf.numel()
-                same = int((gf == wf).sum())
-                both_ok = (gf == klt.TRACK_OK) & (wf == klt.TRACK_OK)
-                err = max(float((gy - wy_).abs()[both_ok].max()),
-                          float((gx - wx_).abs()[both_ok].max()))
-                max_err = max(max_err, err)
-                print(f"kernel: {what} faults_equal={same}/{n} both_ok="
-                      f"{int(both_ok.sum())} max_abs_err_px={err:.3e} "
-                      f"streams_equal_2d_launches={per_stream}")
-                check(bool(torch.isfinite(gy).all()
-                           and torch.isfinite(gx).all()),
-                      f"{what}: non-finite position")
-                check(same >= 0.99 * n, f"{what}: fault codes equal on {same} "
-                                        f"of {n} tracks (< 99 %)")
-                check(int(both_ok.sum()) >= n // 2,
-                      f"{what}: only {int(both_ok.sum())} tracks OK")
-                check(err <= 2e-3, f"{what}: positions differ by {err} px")
-                check(per_stream, f"{what}: a stream differs from its 2-D "
-                                  "launch")
-            args = _klt_args(pyr, tm, ys_, xs_, scales, cfg)
-            bnd, n_evals = _klt_bound(pyr, tm, ys_, xs_, scales, cfg)
-            print(f"kernel: {what} evaluations={n_evals} image_bytes="
-                  f"{bnd['image_bytes']} template_bytes="
-                  f"{bnd['template_bytes']}")
-            t = _times(lambda: kt.klt_track_cuda(*args),
-                       lambda: klt.track_pyramid_reference(
-                           pyr, tm, ys_, xs_, scales, cfg),
-                       "klt_track_kernel", 8)
-            out["klt_track"][f"B{b}_{mode}"] = _print_times(what, bnd, t)
+    for b, mode in ((8, "frames"), (8, "shared"), (16, "frames"),
+                    (16, "shared"), (64, "shared"), (256, "shared")):
+        if mode == "frames":      # stream i: frame i -> frame i + 1
+            scene = _klt_case_scene(dev, lefts[:b], lefts[1:b + 1])
+        else:                     # every stream: frame 0 -> frame 1
+            jitter = torch.rand((b, 464), device=dev, generator=g) - 0.5
+            scene = _klt_case_scene(dev, lefts[0].expand(b, H, W),
+                                    lefts[1].expand(b, H, W), jitter)
+        pyr, tm, ys_, xs_, scales = scene
+        check(all((p.stride(0) == 0) == (mode == "shared") for p in pyr),
+              f"the {mode} pyramid has the other layout")
+        what = f"klt_track batched tracks=[{b}, 512] {mode}"
+        if b != 16:
+            before = kt.launch_count()
+            gy, gx, gf = klt.track_pyramid(pyr, tm, ys_, xs_, scales, cfg)
+            check(kt.launch_count() == before + 1,
+                  "a batched track_pyramid did not launch klt_track once")
+            wy_, wx_, wf = klt.track_pyramid_reference(pyr, tm, ys_, xs_,
+                                                       scales, cfg)
+            per_stream = True
+            for i in range(b):
+                one = klt.KltTemplates(*(tuple(t[i] for t in seq)
+                                         for seq in tm))
+                oy_, ox_, of = klt.track_pyramid(
+                    tuple(p[i] for p in pyr), one, ys_[i], xs_[i], scales,
+                    cfg)
+                per_stream &= (torch.equal(gy[i], oy_)
+                               and torch.equal(gx[i], ox_)
+                               and torch.equal(gf[i], of))
+            torch.cuda.synchronize()
+            n = gf.numel()
+            same = int((gf == wf).sum())
+            both_ok = (gf == klt.TRACK_OK) & (wf == klt.TRACK_OK)
+            err = max(float((gy - wy_).abs()[both_ok].max()),
+                      float((gx - wx_).abs()[both_ok].max()))
+            max_err = max(max_err, err)
+            print(f"kernel: {what} faults_equal={same}/{n} both_ok="
+                  f"{int(both_ok.sum())} max_abs_err_px={err:.3e} "
+                  f"streams_equal_2d_launches={per_stream}")
+            check(bool(torch.isfinite(gy).all()
+                       and torch.isfinite(gx).all()),
+                  f"{what}: non-finite position")
+            check(same >= 0.99 * n, f"{what}: fault codes equal on {same} "
+                                    f"of {n} tracks (< 99 %)")
+            check(int(both_ok.sum()) >= n // 2,
+                  f"{what}: only {int(both_ok.sum())} tracks OK")
+            check(err <= 2e-3, f"{what}: positions differ by {err} px")
+            check(per_stream, f"{what}: a stream differs from its 2-D "
+                              "launch")
+        args = _klt_args(pyr, tm, ys_, xs_, scales, cfg)
+        bnd, n_evals = _klt_bound(pyr, tm, ys_, xs_, scales, cfg)
+        print(f"kernel: {what} evaluations={n_evals} image_bytes="
+              f"{bnd['image_bytes']} template_bytes="
+              f"{bnd['template_bytes']}")
+        t = _times(lambda: kt.klt_track_cuda(*args),
+                   lambda: klt.track_pyramid_reference(
+                       pyr, tm, ys_, xs_, scales, cfg),
+                   "klt_track_kernel", 8 if b <= 16 else 4)
+        out["klt_track"][f"B{b}_{mode}"] = _print_times(what, bnd, t)
+        del pyr, tm, ys_, xs_, args
+        torch.cuda.empty_cache()
     out["klt_track"]["max_abs_err"] = max_err
     return out
 
@@ -5322,6 +5449,266 @@ def _corners_detected(img, truth) -> np.ndarray:
     pts = np.stack([xs[valid], ys[valid]], 1)
     return np.linalg.norm(truth[:, None] - pts[None], axis=-1).min(1) < 1.0
 
+# --- ``--sweep``: both kernels shape by shape, beside other trees' --------
+
+
+_KERNEL_MODULES = ("boofcv_tpu_torch", "boofcv_tpu_torch.kernels",
+                   "boofcv_tpu_torch.kernels._nvcc",
+                   "boofcv_tpu_torch.kernels.window_gather",
+                   "boofcv_tpu_torch.kernels.klt_track")
+
+
+class _SweepTree:
+    """One tree's kernel package, imported beside this tree's: its own
+    wrappers, its own C interface and its own build (into its own
+    ``_build/``), so a sweep times what a caller of that tree runs.
+    ``defines`` are added to klt_track's nvcc flags (``-DKLT_SPLIT_ABOVE``
+    picks the Gauss-Newton loop)."""
+
+    def __init__(self, tag: str, tree: str, defines=()):
+        self.tag = tag
+        saved = {m: sys.modules.pop(m) for m in _KERNEL_MODULES
+                 if m in sys.modules}
+        sys.path.insert(0, os.path.abspath(tree))
+        try:
+            import boofcv_tpu_torch.kernels._nvcc as nv
+            import boofcv_tpu_torch.kernels.klt_track as kt
+            import boofcv_tpu_torch.kernels.window_gather as wg
+            nv.EXTRA_FLAGS = {**nv.EXTRA_FLAGS, "klt_track":
+                              nv.EXTRA_FLAGS["klt_track"] + tuple(defines)}
+            kt._kernel_lib()   # cached: built while this tree is imported
+            wg._kernel_lib()
+        finally:
+            sys.path.pop(0)
+            for m in _KERNEL_MODULES:
+                sys.modules.pop(m, None)
+            sys.modules.update(saved)
+        self.kt, self.wg = kt, wg
+        self.records = {n: nv.build_record(n)
+                        for n in ("klt_track", "window_gather")}
+
+    def klt(self, args):
+        return self.kt.klt_track_cuda(*args)
+
+    def gather(self, img, oy, ox, wy, wx):
+        return self.wg.gather_windows_cuda(img, oy, ox, wy, wx)
+
+    def empty(self, n, wy, wx):
+        return self.wg.launch_empty(n, wy, wx, torch.device("cuda", 0))
+
+
+def _dump_sass(libs: dict, out: str) -> None:
+    """``cuobjdump -sass`` of every library, with per-kernel counts of the
+    instructions that shape the KLT chain."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for tag, path in libs.items():
+        proc = subprocess.run([tool, "-sass", path], capture_output=True,
+                              text=True)
+        with open(os.path.join(out, f"{tag}.sass.txt"), "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        func, counts = None, {}
+        for line in proc.stdout.splitlines():
+            if "Function :" in line:
+                func = line.split("Function :")[1].strip()
+                counts[func] = {}
+            elif func and line.strip().startswith("/*") and "*/" in line:
+                words = line.split("*/", 1)[1].split()
+                if words and words[0].startswith("@"):
+                    words = words[1:]
+                if words and not words[0].startswith("/*"):
+                    op = words[0].split(".")[0]
+                    counts[func][op] = counts[func].get(op, 0) + 1
+        for func, c in counts.items():
+            keep = {k: c.get(k, 0) for k in ("LDG", "LDGSTS", "LDS", "STS",
+                                             "SHFL", "MUFU", "BRA", "BAR",
+                                             "WARPSYNC", "VOTE", "DEPBAR",
+                                             "STL", "LDL")}
+            print(f"sass: {tag} {func[:60]} instructions={sum(c.values())} "
+                  f"{keep}")
+
+
+def _sweep_klt_inputs(dev, lefts, b, mode):
+    """A ``chip_smoke._klt_case_scene`` of B streams: [512] on frames 0 ->
+    1 (b = 0), b different frame pairs, or b streams on one shared pair."""
+    g = torch.Generator(device=dev).manual_seed(b)
+    if b == 0:
+        return _klt_case_scene(dev, lefts[0], lefts[1])
+    if mode == "frames":
+        return _klt_case_scene(dev, lefts[:b], lefts[1:b + 1])
+    jitter = torch.rand((b, 464), device=dev, generator=g) - 0.5
+    return _klt_case_scene(dev, lefts[0].expand(b, H, W),
+                              lefts[1].expand(b, H, W), jitter)
+
+
+def _sweep_time(what, fn, kernel, reps, bnd=None, extra=""):
+    """Device ms (profiler) and ms over 200 back-to-back calls."""
+    fn()
+    torch.cuda.synchronize()
+    dev_ms = device_ms(fn, reps, kernel)
+    ms = cuda_ms(fn, 200)
+    share = "" if bnd is None else (f" bound_ms={bnd['bound_ms']:.6f} "
+                                    f"bound_by={bnd['bound_by']} share="
+                                    f"{bnd['bound_ms'] / dev_ms:.4f}")
+    print(f"sweep: {what} device_ms={dev_ms:.6f} ms_200_calls={ms:.6f}"
+          f"{share}{extra}")
+    return dev_ms
+
+
+def _turns(others) -> list:
+    """Each tree, then today twice, then each tree again in reverse."""
+    tags = [o.tag for o in others] + ["today"]
+    return tags + tags[::-1]
+
+
+def _sweep_klt(dev, lefts, others):
+    from boofcv_tpu_torch.feature import klt
+    from boofcv_tpu_torch.kernels import klt_track as kt
+    cfg = klt.KltConfig()
+    by_tag = {o.tag: o for o in others}
+    shapes = [("[512] 4 levels", 0, "frames"),
+              ("[4, 512] frames", 4, "frames"),
+              ("[8, 512] frames", 8, "frames"),
+              ("[16, 512] frames", 16, "frames"),
+              ("[64, 512] shared", 64, "shared"),
+              ("[256, 512] shared", 256, "shared")]
+    for what, b, mode in shapes:
+        pyr, tm, ys, xs, scales = _sweep_klt_inputs(dev, lefts, b, mode)
+        args = _klt_args(pyr, tm, ys, xs, scales, cfg)
+        bnd, n_evals = _klt_bound(pyr, tm, ys, xs, scales, cfg)
+        today = kt.klt_track_cuda(*args)
+        line = f"sweep: klt_track {what} n={ys.numel()} evals={n_evals}"
+        for o in others:
+            old = o.klt(args)
+            bits = all(torch.equal(p, q) for p, q in zip(old, today))
+            faults = int((old[2] == today[2]).sum())
+            err = float(torch.maximum((old[0] - today[0]).abs(),
+                                      (old[1] - today[1]).abs()).max())
+            line += (f" {o.tag}_bit_equal={bits} {o.tag}_faults_equal="
+                     f"{faults}/{ys.numel()} {o.tag}_max_abs_px={err:.3e}")
+        print(line)
+        reps = 50 if b <= 16 else 20
+        for tag in _turns(others):
+            fn = ((lambda: kt.klt_track_cuda(*args)) if tag == "today"
+                  else (lambda o=by_tag[tag]: o.klt(args)))
+            _sweep_time(f"klt_track {what} {tag}", fn, "klt_track_kernel",
+                        reps, bnd)
+        if b == 0:        # the iteration cap and the level count
+            subs = [(f"max_iterations={cap}", args[:8] + (cap,) + args[9:])
+                    for cap in (1, 2, 4)]
+            subs += [(f"levels={k}",
+                      (args[0][:k], args[1][:k], args[2][:k], args[3][:k],
+                       ys, xs, scales[:k]) + args[7:]) for k in (1, 2, 4)]
+            for label, sub in subs:
+                ev = int(kt.klt_track_cuda(*sub)[3].sum())
+                for tag in [o.tag for o in others] + ["today"]:
+                    fn = ((lambda sub=sub: kt.klt_track_cuda(*sub))
+                          if tag == "today" else
+                          (lambda o=by_tag[tag], sub=sub: o.klt(sub)))
+                    _sweep_time(f"klt_track [512] {label} {tag}", fn,
+                                "klt_track_kernel", 50,
+                                extra=f" evals={ev}")
+        del pyr, tm, ys, xs, args, today
+        torch.cuda.empty_cache()
+
+
+def _sweep_gather(dev, lefts, others):
+    from boofcv_tpu_torch.kernels import window_gather as wg
+    by_tag = {o.tag: o for o in others}
+    g = torch.Generator(device=dev).manual_seed(1)
+    for b, mode in ((0, "frames"), (16, "frames"), (64, "shared"),
+                    (256, "shared")):
+        lead = () if b == 0 else (b,)
+        ys = torch.randint(0, H, lead + (512,), generator=g, device=dev,
+                           dtype=torch.int32)
+        xs = torch.randint(0, W, lead + (512,), generator=g, device=dev,
+                           dtype=torch.int32)
+        if b == 0:
+            img = lefts[0]
+        elif mode == "frames":
+            img = lefts[:b]
+        else:
+            img = lefts[0].expand(b, H, W)
+        shapes = [(7, 102, ys - 3, xs - 98), (7, 7, ys - 3, xs - 3)]
+        if b == 0:
+            cy, cx = ys.float() + 0.3, xs.float() + 0.6
+            oy, ox, _, _ = wg.aligned_window_origin(cy, cx, 3, H, W)
+            shapes.append((24, 16, oy, ox))
+        for wy, wx, oy, ox in shapes if b == 0 else shapes[:1]:
+            oy, ox = oy.contiguous(), ox.contiguous()
+            want = wg.gather_windows_reference(img, oy, ox, wy, wx)
+            got = wg.gather_windows_cuda(img, oy, ox, wy, wx)
+            check(torch.equal(got, want), f"gather {wy}x{wx} B={b}")
+            line = f"sweep: window_gather {wy}x{wx} b={b} {mode} equal=True"
+            for o in others:
+                line += (f" {o.tag}_equal="
+                         f"{torch.equal(o.gather(img, oy, ox, wy, wx), want)}")
+            print(line)
+            shared = mode == "shared" and b > 0
+            bnd = bound(touched_bytes(H, W, oy, ox, wy, wx,
+                                            shared)
+                           + 4 * oy.numel() * wy * wx + 8 * oy.numel(), 0)
+            for tag in _turns(others):
+                fn = ((lambda: wg.gather_windows_cuda(img, oy, ox, wy, wx))
+                      if tag == "today" else
+                      (lambda o=by_tag[tag]: o.gather(img, oy, ox, wy, wx)))
+                _sweep_time(f"window_gather {wy}x{wx} origins="
+                            f"{list(oy.shape)} {mode} {tag}", fn,
+                            "window_gather_kernel", 50 if b <= 16 else 20,
+                            bnd)
+            n = oy.numel()
+            for tag in [o.tag for o in others] + ["today"]:
+                fn = ((lambda: wg.launch_empty(n, wy, wx, dev))
+                      if tag == "today" else
+                      (lambda o=by_tag[tag]: o.empty(n, wy, wx)))
+                _sweep_time(f"window_gather {wy}x{wx} n={n} empty launch "
+                            f"{tag}", fn, "window_gather_empty_kernel", 50)
+
+
+def sweep_main(argv) -> int:
+    """``chip_smoke.py --sweep``: see the module's docstring."""
+    from boofcv_tpu_torch.kernels import _nvcc
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --sweep")
+    ap.add_argument("--baseline", action="append", default=[],
+                    metavar="[TAG=]DIR")
+    ap.add_argument("--out", default=os.path.join(
+        "boofcv_tpu_torch", "kernels", "_build", "sweep"))
+    a = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke --sweep: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    os.makedirs(a.out, exist_ok=True)
+    phase_environment()
+    phase_build()
+    records = {f"today_{n}": _nvcc.build_record(n)
+               for n in ("klt_track", "window_gather")}
+    others = []
+    for i, spec in enumerate(a.baseline):
+        tag, _, tree = spec.rpartition("=")
+        others.append(_SweepTree(tag or ("baseline" if i == 0
+                                         else f"baseline{i}"), tree))
+    # this tree's klt_track with each Gauss-Newton loop at every count
+    loops = [_SweepTree("single_loop", ".", ("-DKLT_SPLIT_ABOVE=2147483647",)),
+             _SweepTree("split_loop", ".", ("-DKLT_SPLIT_ABOVE=0",))]
+    for o in others + loops:
+        records.update({f"{o.tag}_{n}": r for n, r in o.records.items()})
+    for tag, rec in records.items():
+        with open(os.path.join(a.out, f"{tag}.ptxas.txt"), "w") as f:
+            f.write(rec["ptxas"] or "not measured: no report kept\n")
+    _dump_sass({tag: rec["library"] for tag, rec in records.items()}, a.out)
+    _, frames = _scene(17, K, H, W, seed=0)
+    lefts = torch.stack([torch.from_numpy(frames[i][0])
+                         for i in range(17)]).to(dev)
+    try:
+        _sweep_gather(dev, lefts, others)
+        _sweep_klt(dev, lefts, others + loops)
+    except SmokeFailure as e:
+        print(f"chip_smoke --sweep: FAILED: {e}", file=sys.stderr)
+        return 1
+    print("chip_smoke --sweep: OK")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5397,12 +5784,18 @@ def main() -> int:
     # top-level times and bound: the single-stream main path's shapes
     # ([512] windows of 7x102; 512 tracks on 4 levels); "batched": the
     # B = 8 and B = 16 shapes
+    from boofcv_tpu_torch.kernels import _nvcc
+    fields = ("kernel", "registers", "spill_stores", "spill_loads",
+              "stack_frame")
+    ptxas = {name: [dict(zip(fields, row)) for row in
+                    ptxas_summary(_nvcc.build_record(name)["ptxas"])]
+                   or None for name in KERNELS}    # None: not measured
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
          "launches": sum(c.get(name, 0) for c in launches.values()),
          "launches_by_path": {p: c[name] for p, c in launches.items()
                               if name in c},
-         **measured[name], "batched": batched[name]}
+         **measured[name], "batched": batched[name], "ptxas": ptxas[name]}
         for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5411,4 +5804,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sweep"]:
+        sys.exit(sweep_main(sys.argv[2:]))
     sys.exit(main())

@@ -4,6 +4,8 @@ where JAX is absent, run them without the JAX conftest:
     python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -292,6 +294,224 @@ def test_klt_track_streams_match_plain_and_2d(cuda, shared):
                           cfg.max_iterations, cfg.max_per_pixel_error,
                           cfg.min_determinant, cfg.convergence_tol)
     assert kt.launch_count() == launches
+
+
+# --- the redesigned kernels: every template instantiation ------------------
+
+def _hold_klt(got, want, n_min_ok=1):
+    """Held as the 2-D launch is: faults equal on >= 99 % of tracks,
+    positions within 2e-3 px where both track."""
+    (gy, gx, gf), (wy, wx, wf) = got[:3], want[:3]
+    assert int((gf == wf).sum()) >= 0.99 * gf.numel(), torch.nonzero(gf != wf)
+    ok = (gf == klt.TRACK_OK) & (wf == klt.TRACK_OK)
+    assert int(ok.sum()) >= n_min_ok
+    if bool(ok.any()):
+        assert float((gy - wy).abs()[ok].max()) <= 2e-3
+        assert float((gx - wx).abs()[ok].max()) <= 2e-3
+    assert bool(torch.isfinite(gy).all() and torch.isfinite(gx).all())
+
+
+@pytest.mark.parametrize("radius", [1, 2, 3, 4, 5, 6, 7])
+def test_klt_track_every_radius(cuda, radius):
+    """Every radius the kernel takes, so every instantiation: the 24x16
+    window with two patch pixels a lane up to 7x7 and eight a lane for 9x9
+    to 13x13, the 32x32 window for 15x15.  Against the plain version."""
+    tex = simulate.noise_texture(np.random.default_rng(6), size=300)
+    f0 = torch.from_numpy(tex[20:260, 30:290].copy()).to(cuda)
+    f1 = torch.from_numpy(tex[21:261, 28:288].copy()).to(cuda)
+    rng = np.random.default_rng(radius)
+    ys = torch.from_numpy(rng.uniform(0, 239, 300).astype(np.float32)).to(cuda)
+    xs = torch.from_numpy(rng.uniform(0, 259, 300).astype(np.float32)).to(cuda)
+    scales = (1, 2, 4)
+    cfg = klt.KltConfig(template_radius=radius)
+    p0 = pyramid_ops.pyramid_average(f0, PyramidConfig(scales))
+    p1 = pyramid_ops.pyramid_average(f1, PyramidConfig(scales))
+    tm = klt.sample_templates(p0, pyramid_ops.gradient(p0), ys, xs, scales,
+                              radius)
+    args = ([wg.as_planes(p) for p in p1], list(tm.desc), list(tm.grad_x),
+            list(tm.grad_y), ys, xs, scales, radius, cfg.max_iterations,
+            cfg.max_per_pixel_error, cfg.min_determinant,
+            cfg.convergence_tol)
+    got = kt.klt_track_cuda(*args)
+    want = klt.track_pyramid_reference(p1, tm, ys, xs, scales, cfg)
+    torch.cuda.synchronize()
+    _hold_klt(got, want, 20)
+    assert int(got[3].min()) >= 1
+    assert int(got[3].max()) <= len(scales) * cfg.max_iterations
+
+
+def test_klt_track_level_smaller_than_its_window(cuda):
+    """Levels of 40x60, 20x30 and 10x15 (the last two smaller than the 24x16
+    window, the last in both sides; 8x8 is the least the template sampler
+    takes): the window's clamped reads replicate the edges, as the plain
+    version's gather does."""
+    tex = simulate.noise_texture(np.random.default_rng(8), size=96)
+    f0 = torch.from_numpy(tex[10:50, 5:65].copy()).to(cuda)
+    f1 = torch.from_numpy(tex[11:51, 4:64].copy()).to(cuda)
+    rng = np.random.default_rng(9)
+    ys = torch.from_numpy(rng.uniform(0, 39, 64).astype(np.float32)).to(cuda)
+    xs = torch.from_numpy(rng.uniform(0, 59, 64).astype(np.float32)).to(cuda)
+    scales = (1, 2, 4)
+    cfg = klt.KltConfig()
+    p0 = pyramid_ops.pyramid_average(f0, PyramidConfig(scales))
+    p1 = pyramid_ops.pyramid_average(f1, PyramidConfig(scales))
+    (h1, _), (h2, w2) = p1[1].shape, p1[2].shape
+    assert h1 < 24 and h2 < 24 and w2 < 16
+    tm = klt.sample_templates(p0, pyramid_ops.gradient(p0), ys, xs, scales, 3)
+    before = kt.launch_count()
+    got = klt.track_pyramid(p1, tm, ys, xs, scales, cfg)
+    assert kt.launch_count() == before + 1
+    want = klt.track_pyramid_reference(p1, tm, ys, xs, scales, cfg)
+    torch.cuda.synchronize()
+    _hold_klt(got, want)
+
+
+def test_klt_track_256_streams_on_a_shared_frame(cuda):
+    """[256, 512] tracks on one frame expanded over the streams (the batched
+    runner's shape), each stream with its own tracks: one launch, held to
+    the plain version, and every stream bit-equal to its own 2-D launch."""
+    tex = simulate.noise_texture(np.random.default_rng(10), size=320)
+    f0 = torch.from_numpy(tex[:240, :300].copy()).to(cuda)
+    f1 = torch.from_numpy(tex[2:242, 1:301].copy()).to(cuda)
+    b, n = 256, 512
+    rng = np.random.default_rng(11)
+    ys = torch.from_numpy(rng.uniform(4, 235, (b, n)).astype(np.float32))
+    xs = torch.from_numpy(rng.uniform(4, 295, (b, n)).astype(np.float32))
+    ys, xs = ys.to(cuda), xs.to(cuda)
+    scales = (1, 2, 4)
+    cfg = klt.KltConfig()
+    p0 = pyramid_ops.pyramid_average(f0.expand(b, 240, 300),
+                                     PyramidConfig(scales))
+    p1 = pyramid_ops.pyramid_average(f1.expand(b, 240, 300),
+                                     PyramidConfig(scales))
+    assert all(p.stride(0) == 0 for p in p1)
+    tm = klt.sample_templates(p0, pyramid_ops.gradient(p0), ys, xs, scales, 3)
+    before = kt.launch_count()
+    gy, gx, gf = klt.track_pyramid(p1, tm, ys, xs, scales, cfg)
+    assert kt.launch_count() == before + 1
+    want = klt.track_pyramid_reference(p1, tm, ys, xs, scales, cfg)
+    torch.cuda.synchronize()
+    _hold_klt((gy, gx, gf), want, b * n // 2)
+    for i in range(b):
+        one = klt.KltTemplates(*(tuple(t[i] for t in seq) for seq in tm))
+        oy, ox, of = klt.track_pyramid(tuple(p[i] for p in p1), one, ys[i],
+                                       xs[i], scales, cfg)
+        assert torch.equal(gy[i], oy) and torch.equal(gx[i], ox), i
+        assert torch.equal(gf[i], of), i
+
+
+def _near_midpoint_pairs(rng, count):
+    """(a, b, c) with 24-bit integer mantissas whose quotients a / b and
+    c / b lie within about 2^-48 of a midpoint of the float grid (A * 2^s
+    = M * B + r with M odd and |r| <= 3), the nearest two floats' quotients
+    come; scaled by random powers of two and signs."""
+    out = []
+    while len(out) < count:
+        bm = int(rng.integers(2 ** 23, 2 ** 24)) | 1
+        found = []
+        for s in (24, 25):
+            inv = pow(2 ** s, -1, bm)
+            for r in (1, -1, 2, -2, 3, -3):
+                am = (r * inv) % bm
+                m, rem = divmod(am * 2 ** s - r, bm)
+                if (rem == 0 and m % 2 == 1 and 2 ** 23 <= am < 2 ** 24
+                        and 2 ** (s - 1) <= m < 2 ** s):
+                    found.append(am)
+        if len(found) >= 2:
+            out.append((found[0], bm, found[1]))
+    a, b, c = (np.array(v, dtype=np.float64) for v in zip(*out))
+    ea, eb = rng.integers(-60, 60, count), rng.integers(-60, 60, count)
+    sign = lambda: rng.choice([-1.0, 1.0], count)
+    return ((sign() * np.ldexp(a, ea)).astype(np.float32),
+            (sign() * np.ldexp(b, eb)).astype(np.float32),
+            (sign() * np.ldexp(c, ea)).astype(np.float32))
+
+
+def test_klt_step_quotients_are_float_divisions(cuda):
+    """The kernel's Gauss-Newton step and mean |error| divide through the
+    divisor's double reciprocal (see csrc/klt_track.cu); on the card its
+    quotient() and quotients() equal the float division bit for bit: on
+    quotients nearest a rounding boundary, on random ones over the whole
+    exponent range, on subnormal and tiny ones about the 2^-125 guard,
+    overflowing ones and zeros."""
+    rng = np.random.default_rng(13)
+    near = _near_midpoint_pairs(rng, 4096)
+    bits = lambda n: rng.integers(0, 2 ** 31, n, dtype=np.int64)
+    rand = [(bits(1 << 16) | rng.choice([0, 1 << 31], 1 << 16))
+            .astype(np.uint32).view(np.float32) for _ in range(3)]
+    big = np.float32(3e38)
+    tiny_a = np.ldexp(rng.uniform(1, 2, 4096), rng.integers(-149, -100, 4096))
+    tiny_b = np.ldexp(rng.uniform(1, 2, 4096), rng.integers(-30, 30, 4096))
+    edge = [tiny_a.astype(np.float32), tiny_b.astype(np.float32),
+            np.resize(np.float32([0.0, -0.0, big, -big, 1e-45, 1.5e-38]),
+                      4096)]
+    a, b, c = (np.concatenate(v) for v in zip(near, rand, edge))
+    keep = np.isfinite(a) & np.isfinite(b) & np.isfinite(c) & (b != 0)
+    a, b, c = a[keep], b[keep], c[keep]
+    n = a.size
+    with np.errstate(over="ignore", under="ignore"):
+        want = np.concatenate([a / b, a / b, c / b])
+    lib = kt._kernel_lib()
+    fn = lib.klt_quotient_test_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    da, db, dc = (torch.from_numpy(v).to(cuda) for v in (a, b, c))
+    q = torch.empty(3 * n, dtype=torch.float32, device=cuda)
+    err = fn(da.data_ptr(), db.data_ptr(), dc.data_ptr(), q.data_ptr(), n,
+             torch.cuda.current_stream(cuda).cuda_stream)
+    assert err == 0, lib.klt_track_error_string(err)
+    got = q.cpu().numpy()
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32)), \
+        np.nonzero(got.view(np.uint32) != want.view(np.uint32))
+    tiny = np.abs(want) < 2.0 ** -125
+    assert 1000 < int(tiny.sum()) < 3 * n   # the guard's branch was taken
+
+
+@pytest.mark.parametrize("wy,wx", [(7, 102), (7, 7), (24, 16), (5, 33)])
+def test_window_gather_every_shape_bit_equal(cuda, wy, wx):
+    """The three compiled shapes and one taking the run-time path, on one
+    frame and at [256, 512] on a shared frame and on a stack: bit-equal to
+    the plain version and, stream by stream, to the 2-D launch."""
+    h, w = 480, 640
+    g = torch.Generator().manual_seed(wy * 1000 + wx)
+    frames = torch.rand((4, h, w), generator=g).to(cuda)
+    oy = torch.randint(-10, h + 5, (256, 512), generator=g,
+                       dtype=torch.int32).to(cuda)
+    ox = torch.randint(-110, w + 5, (256, 512), generator=g,
+                       dtype=torch.int32).to(cuda)
+    one = wg.gather_windows(frames[0], oy[0], ox[0], wy, wx)
+    assert torch.equal(one, wg.gather_windows_reference(frames[0], oy[0],
+                                                        ox[0], wy, wx))
+    for imgs in (frames[0].expand(256, h, w),
+                 frames.repeat(64, 1, 1)):
+        before = wg.launch_count()
+        out = wg.gather_windows(imgs, oy, ox, wy, wx)
+        assert wg.launch_count() == before + 1
+        assert torch.equal(out, wg.gather_windows_reference(imgs, oy, ox,
+                                                             wy, wx))
+        for i in (0, 1, 127, 255):
+            assert torch.equal(out[i], wg.gather_windows(
+                imgs[i].contiguous(), oy[i], ox[i], wy, wx))
+
+
+@pytest.mark.parametrize("strict", [True, False])
+def test_nonmax_mask_on_card_equals_cpu(cuda, strict):
+    """``extract.nonmax_mask`` with either ``strict`` on the card equals
+    the CPU's mask, a plateau and a near-tie peak included."""
+    from boofcv_tpu_torch.feature import extract, intensity
+    tex = simulate.noise_texture(np.random.default_rng(12), size=256)
+    img = torch.from_numpy(np.round(tex[:120, :160]).copy())
+    inten = intensity.shi_tomasi(img, radius=2)
+    top = float(inten.max())
+    inten[40:44, 50:54] = top * 1.5
+    inten[80, 100] = top * 2.0
+    inten[81, 100] = float(np.float32(top * 2.0) * np.float32(1 + 1e-6))
+    for radius, border in ((2, 0), (4, 14)):
+        cpu = extract.nonmax_mask(inten, radius, 1.0, border, strict=strict)
+        card = extract.nonmax_mask(inten.to(cuda), radius, 1.0, border,
+                                   strict=strict)
+        assert torch.equal(card.cpu(), cpu)
+        assert bool(cpu[81, 100]) != strict
 
 
 def _ba_scene(dtype, device, model="normalized", V=8, P=120, L=5, seed=0):

@@ -40,18 +40,33 @@ def test_shi_tomasi(stereo_pair):
                                atol=1e-5 * np.abs(ref).max())
 
 
+@pytest.mark.parametrize("strict", [True, False])
 @pytest.mark.parametrize("radius,border", [(2, 0), (4, 14), (5, 26)])
-def test_nonmax_mask(stereo_pair, radius, border):
-    """Same intensity in, same mask out (the raster tie ramp copied)."""
+def test_nonmax_mask(stereo_pair, radius, border, strict):
+    """Same intensity in, same mask out, strict or not (the raster tie ramp
+    copied).  A plateau and a near-tie peak (two pixels a row apart, the
+    lower one 1e-6 relative below, first in raster order) show what
+    ``strict`` changes: strict keeps the plateau's raster-first pixel and
+    drops both near-tie pixels (the ramp's epsilon outweighs their gap);
+    relaxed keeps the whole plateau and the higher near-tie pixel."""
     left, _ = stereo_pair
     inten = np.array(jint.shi_tomasi(jnp.asarray(left), radius=2))
-    inten[40:44, 50:54] = inten.max() * 1.5              # a plateau
+    top = inten.max()
+    inten[40:44, 50:54] = top * 1.5                      # a plateau
+    inten[80, 100] = top * 2.0                           # a near tie
+    inten[81, 100] = np.float32(top * 2.0) * np.float32(1 + 1e-6)
+    assert inten[81, 100] > inten[80, 100]
     ref = np.asarray(jextract.nonmax_mask(jnp.asarray(inten), radius, 1.0,
-                                          border))
+                                          border, strict=strict))
     out = textract.nonmax_mask(torch.from_numpy(inten), radius, 1.0,
-                               border).numpy()
+                               border, strict=strict).numpy()
     assert np.array_equal(ref, out)
-    assert out[40:44, 50:54].sum() == 1                  # raster-first wins
+    if strict:
+        assert out[40:44, 50:54].sum() == 1              # raster-first wins
+        assert not out[80:82, 100].any()
+    else:
+        assert out[40:44, 50:54].all()
+        assert out[81, 100] and not out[80, 100]
 
 
 def test_detect_as_sets(stereo_pair):
