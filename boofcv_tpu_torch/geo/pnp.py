@@ -1,11 +1,8 @@
-"""Perspective-n-Point pose estimation (port of ``boofcv_tpu/geo/pnp.py``:
-``rigid_from_three_points``, ``p3p_grunert``, ``p3p_finsterwalder``,
-``reprojection_error_sq``, ``_gn_pose_loop``, ``gauss_newton_pose``,
-``refine_pnp``).
+"""Perspective-n-Point pose estimation (port of ``boofcv_tpu/geo/pnp.py``).
 
 Reference analog: boofcv-geo alg/geo/pose/P3PGrunert.java,
-P3PFinsterwalder.java and the nonlinear refiner
-(PnPJacobianRodrigues.java).  P3P is batched over hypotheses; the refine is
+P3PFinsterwalder.java, PnPLepetitEPnP.java (EPnP), the DLT PnP, planar
+PnP and the nonlinear refiner (PnPJacobianRodrigues.java).  P3P is batched over hypotheses; the refine is
 Gauss-Newton on se(3) with the analytic reprojection Jacobian.
 """
 
@@ -14,7 +11,49 @@ from __future__ import annotations
 import torch
 
 from boofcv_tpu_torch.geo import se3
-from boofcv_tpu_torch.geo.smalllinalg import cubic_roots, det3, quartic_roots
+from boofcv_tpu_torch.geo.epipolar import homography_dlt
+from boofcv_tpu_torch.geo.smalllinalg import (_eigh_sym, cubic_roots, det3,
+                                              inv_spd, quartic_roots, solve33)
+
+
+def absolute_orientation(world: torch.Tensor, cam: torch.Tensor,
+                         dtype=torch.float64):
+    """Rigid alignment world -> camera minimising ||R w + t - c|| (Horn's
+    quaternion method, batched).  world, cam: [..., N, 3].  Returns
+    (R [..., 3, 3], t [..., 3]); R from the eigenvector of the largest
+    eigenvalue of the 4x4 quaternion matrix."""
+    world = world.to(dtype)
+    cam = cam.to(dtype)
+    wm = torch.mean(world, dim=-2, keepdim=True)
+    cm = torch.mean(cam, dim=-2, keepdim=True)
+    M = (world - wm).transpose(-1, -2) @ (cam - cm)          # [..., 3, 3]
+    m = lambda i, j: M[..., i, j]
+    k0 = m(0, 0) + m(1, 1) + m(2, 2)
+    K4 = torch.stack([
+        torch.stack([k0, m(1, 2) - m(2, 1), m(2, 0) - m(0, 2),
+                     m(0, 1) - m(1, 0)], dim=-1),
+        torch.stack([m(1, 2) - m(2, 1), m(0, 0) - m(1, 1) - m(2, 2),
+                     m(0, 1) + m(1, 0), m(0, 2) + m(2, 0)], dim=-1),
+        torch.stack([m(2, 0) - m(0, 2), m(0, 1) + m(1, 0),
+                     -m(0, 0) + m(1, 1) - m(2, 2), m(1, 2) + m(2, 1)],
+                    dim=-1),
+        torch.stack([m(0, 1) - m(1, 0), m(0, 2) + m(2, 0),
+                     m(1, 2) + m(2, 1), -m(0, 0) - m(1, 1) + m(2, 2)],
+                    dim=-1),
+    ], dim=-2)
+    _, vecs = _eigh_sym(K4)
+    q = vecs[..., :, -1]
+    w_, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    R = torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w_),
+                     2 * (x * z + y * w_)], dim=-1),
+        torch.stack([2 * (x * y + z * w_), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - x * w_)], dim=-1),
+        torch.stack([2 * (x * z - y * w_), 2 * (y * z + x * w_),
+                     1 - 2 * (x * x + y * y)], dim=-1),
+    ], dim=-2)
+    t = cm[..., 0, :] - (R @ wm[..., 0, :, None])[..., 0]
+    return R, t
 
 
 def rigid_from_three_points(world: torch.Tensor, cam: torch.Tensor):
@@ -353,3 +392,124 @@ def refine_pnp(R, t, world, obs, iterations: int = 10, damping: float = 1e-8):
     iterations; each iteration is one 6x6 solve."""
     return gauss_newton_pose(R, t, world, obs, iterations=iterations,
                              damping=damping)
+
+
+def pnp_dlt(world: torch.Tensor, obs: torch.Tensor):
+    """DLT PnP for N >= 6 points (PoseFromPairLinear6 analog).  world:
+    [..., N, 3]; obs: [..., N, 2] normalized coords.  Returns (R, t)
+    camera-from-world, R projected onto SO(3); the sign of the null vector
+    is fixed by putting the points in front of the camera."""
+    world = world.to(torch.float64)
+    obs = obs.to(torch.float64)
+    X, Y, Z = world[..., 0], world[..., 1], world[..., 2]
+    x, y = obs[..., 0], obs[..., 1]
+    z = torch.zeros_like(X)
+    o = torch.ones_like(X)
+    r1 = torch.stack([X, Y, Z, o, z, z, z, z, -x * X, -x * Y, -x * Z, -x],
+                     dim=-1)
+    r2 = torch.stack([z, z, z, z, X, Y, Z, o, -y * X, -y * Y, -y * Z, -y],
+                     dim=-1)
+    A = torch.cat([r1, r2], dim=-2)                        # [..., 2N, 12]
+    _, v = _eigh_sym(A.transpose(-1, -2) @ A)
+    p = v[..., :, 0]
+    P = p.reshape(p.shape[:-1] + (3, 4))
+    Xh = torch.cat([world, torch.ones_like(world[..., :1])], dim=-1)
+    depth = torch.einsum("...j,...nj->...n", P[..., 2, :], Xh)
+    sign = torch.where(torch.mean(torch.sign(depth), dim=-1, keepdim=True)
+                       < 0, -1.0, 1.0)
+    P = P * sign[..., None]
+    scale = torch.linalg.norm(P[..., 2, :3], dim=-1)
+    M = P[..., :3] / scale[..., None, None]
+    t = P[..., 3] / scale[..., None]
+    return se3.project_to_so3(M), t
+
+
+def epnp(world: torch.Tensor, obs: torch.Tensor,
+         refine_iterations: int = 10):
+    """EPnP (PnPLepetitEPnP.java analog): PnP through 4 control points
+    (the centroid and the principal axes).  world: [N, 3], obs: [N, 2]
+    normalized coords.  The null-space dimension-1 and -2 solutions are
+    both formed, the one with the smaller reprojection error seeds
+    ``refine_iterations`` of the GN refine.  Returns (R, t)."""
+    world = world.to(torch.float64)
+    obs = obs.to(torch.float64)
+    n = world.shape[0]
+    dev = world.device
+
+    c0 = torch.mean(world, dim=0)
+    d = world - c0
+    w_eig, v_eig = _eigh_sym(d.T @ d / n)
+    scale = torch.sqrt(torch.clamp(w_eig, min=1e-12))
+    ctrl = torch.cat([c0[None], c0[None] + (v_eig * scale[None, :]).T])
+
+    # barycentric coordinates [N, 4], each row summing to 1
+    ones4 = torch.ones((1, 4), dtype=torch.float64, device=dev)
+    Cmat = torch.cat([ctrl.T, ones4])
+    rhs = torch.cat([world.T, torch.ones((1, n), dtype=torch.float64,
+                                         device=dev)])
+    alpha = (inv_spd(Cmat.T @ Cmat) @ (Cmat.T @ rhs)).T
+
+    # M x = 0, x the camera coordinates of the 4 control points
+    u = obs[:, 0]
+    v = obs[:, 1]
+    zero = torch.zeros_like(alpha)
+    row_x = torch.stack([alpha, zero, -alpha * u[:, None]],
+                        dim=-1).reshape(n, 12)
+    row_y = torch.stack([zero, alpha, -alpha * v[:, None]],
+                        dim=-1).reshape(n, 12)
+    Mm = torch.cat([row_x, row_y])
+    _, V = _eigh_sym(Mm.T @ Mm)
+    v1 = V[:, 0].reshape(4, 3)
+    v2 = V[:, 1].reshape(4, 3)
+
+    iu, ju = torch.triu_indices(4, 4, offset=1, device=dev)
+    dw = torch.linalg.norm(ctrl[iu] - ctrl[ju], dim=1)
+
+    def pose_from_ctrl(cc):
+        cam = alpha @ cc
+        sign = torch.where(torch.mean(cam[:, 2]) < 0, -1.0, 1.0)
+        return absolute_orientation(world, cam * sign)
+
+    d1 = torch.linalg.norm(v1[iu] - v1[ju], dim=1)
+    beta1 = torch.sum(d1 * dw) / torch.clamp(torch.sum(d1 * d1), min=1e-30)
+    Ra, ta = pose_from_ctrl(beta1 * v1)
+
+    e1 = v1[iu] - v1[ju]
+    e2 = v2[iu] - v2[ju]
+    L = torch.stack([torch.sum(e1 * e1, 1), 2 * torch.sum(e1 * e2, 1),
+                     torch.sum(e2 * e2, 1)], dim=1)         # [6, 3]
+    bb = solve33(L.T @ L, L.T @ (dw * dw))
+    b1 = torch.sqrt(torch.clamp(bb[0], min=1e-30))
+    b2 = torch.sign(bb[1]) * torch.sqrt(torch.clamp(bb[2], min=0.0))
+    Rb, tb = pose_from_ctrl(b1 * v1 + b2 * v2)
+
+    def total(R, t):
+        e = reprojection_error_sq(R, t, world, obs)
+        return torch.sum(torch.where(torch.isfinite(e), e, 1e12))
+    better = total(Ra, ta) <= total(Rb, tb)
+    R = torch.where(better, Ra, Rb)
+    t = torch.where(better, ta, tb)
+    if refine_iterations > 0:
+        R, t = gauss_newton_pose(R, t, world, obs,
+                                 iterations=refine_iterations)
+    return R, t
+
+
+def pnp_planar(world_xy: torch.Tensor, obs: torch.Tensor,
+               refine_iterations: int = 10):
+    """Planar PnP (IPPE use case): pose from N >= 4 points on the world
+    plane z = 0.  world_xy: [N, 2]; obs: [N, 2] normalized coords.  The
+    plane -> image homography [r1 r2 t] is decomposed (points in front)
+    and polished by the GN refine.  Returns (R, t) camera-from-world."""
+    world_xy = world_xy.to(torch.float64)
+    obs = obs.to(torch.float64)
+    H = homography_dlt(world_xy, obs)
+    s = 1.0 / torch.linalg.norm(H[:, 0])
+    s = torch.where(H[2, 2] * s < 0, -s, s)
+    r1 = H[:, 0] * s
+    r2 = H[:, 1] * s
+    R = se3.project_to_so3(torch.stack(
+        [r1, r2, torch.linalg.cross(r1, r2)], dim=1))
+    t = H[:, 2] * s
+    world3 = torch.cat([world_xy, torch.zeros_like(world_xy[:, :1])], 1)
+    return refine_pnp(R, t, world3, obs, iterations=refine_iterations)

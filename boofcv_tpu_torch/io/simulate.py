@@ -1,5 +1,6 @@
-"""Synthetic stereo rendering (port of ``boofcv_tpu/io/simulate.py``:
-``noise_texture``, ``render_plane``, ``render_stereo_sequence``).
+"""Synthetic textures and stereo rendering (port of
+``boofcv_tpu/io/simulate.py``: ``checker_texture``, ``noise_texture``,
+``render_plane``, ``render_stereo_sequence``).
 
 Runs on the host (numpy, and the port's bilinear sampler on CPU tensors),
 so it works where JAX is absent: it is the oracle renderer of the chip
@@ -13,6 +14,21 @@ import numpy as np
 import torch
 
 from boofcv_tpu_torch.ip.interpolate import bilinear
+
+
+def checker_texture(rng, size: int = 512, square: int = 24,
+                    noise: float = 12.0) -> np.ndarray:
+    """High-contrast checkerboard plus noise, lightly smoothed (a corner
+    detector's oracle).  Periodic: not for stereo matching, where block
+    matchers alias onto the neighbouring period.  Same numpy draws as the
+    reference."""
+    yy, xx = np.mgrid[0:size, 0:size]
+    base = (((yy // square) + (xx // square)) % 2) * 180.0 + 40.0
+    tex = base + rng.normal(0, noise, base.shape)
+    k = np.array([0.25, 0.5, 0.25])
+    tex = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), 1, tex)
+    tex = np.apply_along_axis(lambda c: np.convolve(c, k, "same"), 0, tex)
+    return tex.astype(np.float32)
 
 
 def noise_texture(rng, size: int = 512, octaves: int = 4) -> np.ndarray:

@@ -1,6 +1,6 @@
 """Pixel interpolation (port of ``boofcv_tpu/ip/interpolate.py``:
-``nearest``, ``bilinear``, ``in_bounds``, ``sample_rect_bilinear``,
-``sample_rect_bilinear_multi``).
+``nearest``, ``bilinear``, ``bicubic``, ``in_bounds``,
+``sample_rect_bilinear``, ``sample_rect_bilinear_multi``).
 
 BoofCV convention: integer coordinates hit pixel centres; out-of-range
 samples clamp (EXTENDED border).  Coordinates are floored before the cast
@@ -50,6 +50,40 @@ def bilinear(image: torch.Tensor, ys: torch.Tensor,
     top = v00 * (1 - fx) + v01 * fx
     bot = v10 * (1 - fx) + v11 * fx
     return top * (1 - fy) + bot * fy
+
+
+def _cubic_weights(t, a: float = -0.5):
+    """Keys cubic convolution weights for offsets (-1, 0, 1, 2)."""
+    t2 = t * t
+    t3 = t2 * t
+    return (a * (t3 - 2 * t2 + t),
+            (a + 2) * t3 - (a + 3) * t2 + 1,
+            -(a + 2) * t3 + (2 * a + 3) * t2 - a * t,
+            a * (t2 - t3))
+
+
+def bicubic(image: torch.Tensor, ys: torch.Tensor,
+            xs: torch.Tensor) -> torch.Tensor:
+    """Bicubic (Keys a = -0.5) sample of an [H, W] image at float coords of
+    any matching shape, EXTENDED border.  The weights keep the coordinates'
+    dtype, as the reference's do: float64 coordinates give a float64
+    result from a float32 image."""
+    h, w = image.shape
+    y0 = torch.floor(ys)
+    x0 = torch.floor(xs)
+    wy = _cubic_weights(ys - y0)
+    wx = _cubic_weights(xs - x0)
+    y0l = y0.long()
+    x0l = x0.long()
+    acc = 0.0
+    for iy, wyi in enumerate(wy):
+        yy = (y0l + (iy - 1)).clamp(0, h - 1)
+        row = 0.0
+        for ix, wxi in enumerate(wx):
+            xx = (x0l + (ix - 1)).clamp(0, w - 1)
+            row = row + image[yy, xx] * wxi
+        acc = acc + row * wyi
+    return acc
 
 
 def _rect_taps(cy, cx, radius: int, h: int, w: int):

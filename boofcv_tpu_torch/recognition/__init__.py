@@ -1,11 +1,13 @@
-"""Fiducials, QR codes and calibration targets (port of
-boofcv_tpu.recognition).
+"""Fiducials, QR codes, calibration targets, the TLD tracker, bag of
+words and DeepBoof classifiers (port of boofcv_tpu.recognition).
 
 The detectors keep the reference's split: thresholds, labels, corner
 responses and homographies on the device; contours (the native tracer),
-shape fits, lattice assembly and decoding in numpy on the host.  Each
-entry point takes ``device=`` (default the card); an image that is already
-a tensor stays on its device unless ``device`` names another.
+shape fits, lattice assembly and decoding in numpy on the host; TLD's
+pyramids, KLT and patches on the device, its fern cascade and learning on
+the host.  Each entry point takes ``device=`` (default the card); an image
+that is already a tensor stays on its device unless ``device`` names
+another.
 """
 
 from __future__ import annotations

@@ -285,7 +285,9 @@ def test_port_and_chip_smoke_name_no_jax_module():
     assert len(files) > 20
     for new in ("geo/ba.py", "sfm/window_ba.py", "io/bal.py",
                 "io/checkpoint.py", "examples/__init__.py",
-                "examples/bundle_adjustment.py"):
+                "examples/bundle_adjustment.py", "recognition/tld.py",
+                "recognition/scene.py", "recognition/deepboof.py",
+                "utils/profiling.py", "io/image_io.py"):
         assert root / "boofcv_tpu_torch" / new in files, new
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

@@ -1428,3 +1428,118 @@ def test_trackers_on_card_match_cpu(cuda):
     for (a, b), tol in zip(zip(runs["cpu"], runs[str(cuda)]),
                            (1e-3, 1e-3, 0.05, 2.0)):
         assert np.hypot(a[0] - b[0], a[1] - b[1]) <= tol
+
+
+def test_tld_on_card_matches_cpu(cuda):
+    """The reference TLD test's reacquisition scene at 120x160 on both
+    devices: found flags equal on every frame, boxes within
+    ``chip_smoke.TLD_BOX_TOL``, two ``klt_track`` launches a frame."""
+    import chip_smoke as cs
+    from boofcv_tpu_torch.recognition import tld
+    rng = np.random.default_rng(5)
+    obj = lambda cy, cx, s: cs._tld_object(rng, cy, cx, s, 120, 160)
+    f0 = obj(40, 50, 1.0)
+    frames = [obj(43, 55, 1.0), obj(46, 60, 1.0)]
+    frames += [rng.normal(100, 3, (120, 160)).astype(np.float32)
+               for _ in range(2)]
+    frames += [obj(78, 112, 1.7) for _ in range(3)]
+    runs = {}
+    for dev in ("cpu", cuda):
+        t = tld.make_tracker(device=dev)
+        t.initialize(torch.from_numpy(f0).to(dev), 40, 50, 24, 24)
+        kt.reset_launch_count()
+        runs[str(dev)] = [t.process(torch.from_numpy(f).to(dev))
+                          for f in frames]
+        if dev != "cpu":
+            assert kt.launch_count() == 2 * len(frames)
+    for (a_ok, a), (b_ok, b) in zip(runs["cpu"], runs[str(cuda)]):
+        assert a_ok == b_ok
+        assert np.abs(np.subtract(a, b)).max() <= cs.TLD_BOX_TOL
+    ok, box = runs[str(cuda)][4]
+    assert ok and abs(box[0] - 78) < 8 and abs(box[1] - 112) < 8
+
+
+def test_scene_and_deepboof_on_card_match_cpu(cuda):
+    """Bag of words (same ``init_idx``) and both networks' logits on both
+    devices."""
+    import chip_smoke as cs
+    from boofcv_tpu_torch.examples.classify_scene_knn import texture
+    from boofcv_tpu_torch.feature import dense
+    from boofcv_tpu_torch.recognition import deepboof, scene
+    rng = np.random.default_rng(19)
+    train = [(texture(rng, k), k) for k in range(3) for _ in range(4)]
+    test = [(texture(rng, k), k) for k in range(3) for _ in range(3)]
+    labels, preds = [k for _, k in train], {}
+    for dev in ("cpu", cuda):
+        f = [dense.dense_sift(img, device=dev)[2] for img, _ in train]
+        idx = np.arange(0, sum(len(x) for x in f), 7)[:24]
+        clf = scene.train_bow(None, f, labels, vocab_size=24, init_idx=idx,
+                              device=dev)
+        preds[str(dev)] = [scene.classify_bow(
+            clf, dense.dense_sift(img, device=dev)[2]) for img, _ in test]
+    assert preds["cpu"] == preds[str(cuda)]
+    assert np.mean(np.equal(preds["cpu"], [k for _, k in test])) >= 0.8
+    params = cs._numpy_params("vgg", np.random.default_rng(3))
+    x = np.random.default_rng(4).uniform(0, 1, (16, 32, 32, 3)).astype(
+        np.float32)
+    cpu, card = _both(lambda t: deepboof.vgg_cifar10_forward(
+        deepboof.params_from_numpy(params, device=t.device), t), cuda, x)
+    assert float((card.cpu() - cpu).abs().max()) <= \
+        1e-3 * float(cpu.abs().max())
+    ch = (16, 24, 32)
+    nin = deepboof.init_nin(torch.Generator().manual_seed(5), num_classes=7,
+                            channels=ch, device="cpu")
+    x = np.random.default_rng(6).uniform(0, 1, (2, 67, 67, 3)).astype(
+        np.float32)
+    cpu, card = _both(lambda t: deepboof.nin_forward(
+        {k: v.to(t.device) for k, v in nin.items()}, t, channels=ch),
+        cuda, x)
+    assert float((card.cpu() - cpu).abs().max()) <= \
+        1e-3 * float(cpu.abs().max())
+
+
+def test_ip_more_on_card_matches_cpu(cuda):
+    """The functions the port's modules lacked, at 240x320 on an
+    integer-valued image, and the PnP solvers, on both devices."""
+    import chip_smoke as cs
+    from boofcv_tpu_torch.core.pyramid import PyramidConfig
+    from boofcv_tpu_torch.feature import intensity
+    from boofcv_tpu_torch.geo import pnp
+    from boofcv_tpu_torch.ip import convolve, derivative, interpolate
+    from boofcv_tpu_torch.ip import pyramid_ops
+    img = np.round(simulate.checker_texture(np.random.default_rng(1),
+                                            size=320, square=20))[:240]
+    img = np.clip(img, 0, 255).astype(np.float32)
+    exact = {
+        "prewitt": derivative.prewitt, "laplacian": derivative.laplacian,
+        "hessian_three": derivative.hessian_three,
+        "convolve_down": lambda t: convolve.convolve_down(
+            t, torch.tensor([0.25, 0.5, 0.25]), 2, 0),
+        "fast": intensity.fast, "hessian_det": intensity.hessian_det,
+        "median_intensity": intensity.median_intensity}
+    for name, fn in exact.items():
+        cpu, card = _both(fn, cuda, img)
+        for a, b in zip(cpu if isinstance(cpu, tuple) else (cpu,),
+                        card if isinstance(card, tuple) else (card,)):
+            assert torch.equal(b.cpu(), a), name
+    close = {
+        "pyramid_discrete": lambda t: pyramid_ops.pyramid_discrete(
+            t, PyramidConfig((1, 2, 4), sigma=1.0)),
+        "harris_weighted": lambda t: (intensity.harris(t, weighted=True),),
+        "kitros": lambda t: (intensity.kitros(t),),
+        "bicubic": lambda t: (interpolate.bicubic(
+            t, torch.linspace(-2, 241, 999, dtype=torch.float64,
+                              device=t.device),
+            torch.linspace(-2, 321, 999, dtype=torch.float64,
+                           device=t.device)),)}
+    for name, fn in close.items():
+        cpu, card = _both(fn, cuda, img)
+        for a, b in zip(cpu, card):
+            assert float((b.cpu() - a).abs().max()) <= \
+                1e-4 * float(a.abs().max()), name
+    world, obs, (R, t) = cs._pnp_scenes(n=64)["general"]
+    for fn in (pnp.epnp, pnp.pnp_dlt):
+        cpu, card = _both(fn, cuda, world, obs)
+        assert max(float((x.cpu() - y).abs().max())
+                   for x, y in zip(card, cpu)) <= 1e-6
+        assert np.abs(cpu[0].numpy() - R).max() < 1e-2
