@@ -302,8 +302,11 @@ _GRID = 24               # samples a side of the histogram's lattice
 
 def _unit_lattice(n: int, device):
     """``jnp.linspace(-1, 1, n, dtype=float32)`` by its formula (start
-    (1 - i/(n-1)) + stop i/(n-1), then the stop) as the [n, n] lattice."""
-    step = torch.arange(n - 1, dtype=F32, device=device) / (n - 1)
+    (1 - i/(n-1)) + stop i/(n-1), then the stop) as the [n, n] lattice.
+    The quotient divides by a tensor: the card divides by a Python scalar
+    as a multiply by its reciprocal, which rounds otherwise."""
+    step = torch.arange(n - 1, dtype=F32, device=device)
+    step = step / torch.full_like(step, n - 1)
     u = torch.cat([-1.0 * (1 - step) + 1.0 * step,
                    torch.ones(1, dtype=F32, device=device)])
     return torch.meshgrid(u, u, indexing="ij")

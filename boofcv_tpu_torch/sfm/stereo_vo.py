@@ -535,11 +535,13 @@ class StereoVisualOdometry:
         self._boot = make_bootstrap(cfg, rectK, baseline)
         self.state = init_state(cfg, height, width, seed, self.device)
         self._first = True
+        self._pose = (np.eye(3), np.zeros(3))    # init_state's pose
         self.metrics = {}
 
     def reset(self, seed: int = 0):
         self.state = init_state(self.cfg, 0, 0, seed, self.device)
         self._first = True
+        self._pose = (np.eye(3), np.zeros(3))
 
     def _tensor(self, image):
         return torch.as_tensor(image, dtype=torch.float32, device=self.device)
@@ -549,14 +551,22 @@ class StereoVisualOdometry:
             self.state = self._boot(self.state, self._tensor(left),
                                     self._tensor(right))
             self._first = False
-            return True
-        self.state, m = self._step(self.state, self._tensor(left),
-                                   self._tensor(right))
-        vals = torch.stack([v.to(torch.int64) for v in m.values()]).tolist()
-        self.metrics = dict(zip(m.keys(), vals))     # one host sync
-        return bool(self.metrics["pose_ok"])
+            m = {}
+        else:
+            self.state, m = self._step(self.state, self._tensor(left),
+                                       self._tensor(right))
+        # one host sync a frame: the metrics (small integers, exact in
+        # float64) and the camera->world pose together
+        R, t = se3.invert(self.state.R, self.state.t)
+        host = torch.cat([v.to(torch.float64).reshape(1) for v in m.values()]
+                         + [R.reshape(9), t]).cpu().numpy()
+        n = len(m)
+        if m:
+            self.metrics = dict(zip(m, host[:n].astype(np.int64).tolist()))
+        self._pose = (host[n:n + 9].reshape(3, 3), host[n + 9:])
+        return bool(self.metrics["pose_ok"]) if m else True
 
     def camera_to_world(self):
-        """Current camera->world SE3 as numpy (R, t)."""
-        R, t = se3.invert(self.state.R, self.state.t)
-        return R.cpu().numpy(), t.cpu().numpy()
+        """Camera->world SE3 as numpy (R, t), as read by the last
+        ``process``."""
+        return self._pose[0].copy(), self._pose[1].copy()

@@ -2,8 +2,8 @@
 """Drive the PyTorch port's main paths (stereo VO, bundle adjustment, the
 breadth surface, the other VO families and 2-D motion, multi-view SfM,
 fiducials, QR codes and calibration targets, the rest of ip/ and
-feature/, the TLD tracker, bag of words, DeepBoof, io/) once on one CUDA
-card.
+feature/, the TLD tracker, bag of words, DeepBoof, io/, the commands and
+the examples) once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -196,7 +196,18 @@ Phases, each printed on its own line(s); any failure exits non-zero:
     PLY round trips on the host; ``ip_more:`` the derivative stencils,
     ``convolve_down``, ``sparse_sample``, ``bicubic``, the Gaussian pyramid
     and scale space, FAST, Harris, Kitchen-Rosenfeld, the Hessian and
-    median intensities and four PnP solvers (512 points).
+    median intensities and four PnP solvers (512 points);
+20. ``cli_vo:`` the main path through the user's command: the 41 frames of
+    phase 4 written as PNG pairs, then ``cli.stereo_vo_demo.main`` in this
+    process; the trajectory equal within 1e-6 to a ``StereoVisualOdometry``
+    run on the same decoded frames and within the VO bars, with and
+    without ``--calib``; frames/s end to end (PNG decode included), the
+    step's share, host syncs by call site, a profiled frame's kernels and
+    idle share, both kernels' launches;
+21. ``examples:`` every example of the port (64) once on the card
+    in-process: each returns 0 with ``OK`` last; its ms and launches;
+22. ``cli:`` the eight other commands on the data ``tests/test_cli.py``
+    builds, each held to that test's bar.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -6031,6 +6042,461 @@ def phase_ip_more(dev) -> None:
     print("ip_more: accuracy: " + "; ".join(lines))
 
 
+# ---- the commands and the examples (cli/, examples/) ----------------------
+
+# the examples whose path reaches a hand kernel, with the kernels it runs
+EXAMPLE_KERNELS = {
+    "visual_odometry_stereo": ("klt_track", "window_gather"),
+    "visual_odometry_depth": ("klt_track",),
+    "visual_odometry_mono_plane": ("klt_track",),
+    "point_feature_tracker": ("klt_track",),
+    "video_stabilization": ("klt_track",),
+    "video_mosaic": ("klt_track",),
+    "image_stitching": ("klt_track",),
+    "tracker_object": ("klt_track",),
+}
+N_EXAMPLES = 64
+
+
+def write_stereo_dirs(root: str, frames) -> tuple:
+    """Each (left, right) float32 pair of ``frames`` as 8-bit PNG files
+    ``left/NNN.png`` and ``right/NNN.png`` under ``root``; returns the two
+    directories."""
+    from boofcv_tpu_torch.io import image_io
+    dirs = tuple(os.path.join(root, side) for side in ("left", "right"))
+    for d in dirs:
+        os.makedirs(d, exist_ok=True)
+    for i, pair in enumerate(frames):
+        for d, img in zip(dirs, pair):
+            image_io.save(os.path.join(d, f"{i:03d}.png"), img)
+    return dirs
+
+
+def _run_command(main_fn, argv) -> tuple:
+    """(return code, stdout, host wall s) of ``main_fn(argv)``, with the
+    card synchronized after it."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    torch.cuda.synchronize()
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def phase_cli_vo(dev, poses, frames) -> dict:
+    """``cli_vo:`` the main path through the user's command: the reference
+    scene's 41 640x480 frames written as PNG pairs, then
+    ``cli.stereo_vo_demo.main`` in this process (``--fx 480 --baseline
+    0.4 --device cuda``).  The written trajectory must equal, within 1e-6,
+    a ``StereoVisualOdometry`` run on the same decoded frames, and meet the
+    VO bars (``pose_ok`` on every frame, ATE below 0.15 x the motion,
+    final rotation error below 2 degrees); a run with ``--calib`` (a stereo
+    YAML of the scene's own calibration) must meet them too.  Prints
+    frames/s end to end (PNG decode included), the share of it in
+    ``process``, both kernels' launches, host syncs by call site (one run
+    with sync warnings on) and the kernels, device busy ms and idle share
+    of one profiled frame (the 21st; another run).  Returns the launches
+    of the counted run."""
+    import tempfile
+    from boofcv_tpu_torch.cli import stereo_vo_demo
+    from boofcv_tpu_torch.io import calibration_io as cio
+    from boofcv_tpu_torch.io import image_io
+    from boofcv_tpu_torch.kernels import klt_track as kt
+    from boofcv_tpu_torch.kernels import window_gather as wg
+    from boofcv_tpu_torch.sfm import stereo_vo
+    svo = stereo_vo.StereoVisualOdometry
+    process = svo.process
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ld, rd = write_stereo_dirs(tmp, frames)
+        write_s = time.perf_counter() - t0
+        cam = cio.CameraPinholeBrown(W, H, *(float(v) for v in (
+            K[0, 0], K[1, 1], 0.0, K[0, 2], K[1, 2])))
+        calib = os.path.join(tmp, "stereo.yaml")
+        cio.save_stereo(cio.StereoParameters(
+            cam, cam, np.eye(3), np.array([BASELINE, 0.0, 0.0])), calib)
+        base = ["--left", ld, "--right", rd, "--device", "cuda"]
+        plain = base + ["--fx", f"{K[0, 0]:g}", "--baseline", f"{BASELINE:g}"]
+        out = {k: os.path.join(tmp, f"{k}.txt")
+               for k in ("timed", "syncs", "traced", "calib")}
+
+        # the counted and timed run; ``process`` timed alone beside it
+        step_s = []
+
+        def timed(self, left, right):
+            t1 = time.perf_counter()
+            ok = process(self, left, right)
+            step_s.append(time.perf_counter() - t1)
+            return ok
+        kt.reset_launch_count()
+        wg.reset_launch_count()
+        svo.process = timed
+        try:
+            rc, log, wall = _run_command(stereo_vo_demo.main,
+                                         plain + ["--output", out["timed"]])
+        finally:
+            svo.process = process
+        launches = {"klt_track": kt.launch_count(),
+                    "window_gather": wg.launch_count()}
+        check(rc == 0, f"cli_vo: stereo_vo_demo returned {rc}")
+        oks = [line.split("ok=")[1].startswith("True")
+               for line in log.splitlines() if line.startswith("frame ")]
+        traj = np.loadtxt(out["timed"])
+        check(traj.shape == (N_FRAMES, 12) and len(oks) == N_FRAMES,
+              f"cli_vo: trajectory {traj.shape}, {len(oks)} frame lines")
+        text, ok = _pose_bars(poses, list(traj[:, 9:]),
+                              list(traj[:, :9].reshape(-1, 3, 3)), oks, 0.15)
+
+        # the same decoded frames through StereoVisualOdometry directly
+        lefts = [image_io.to_gray(a) for a in image_io.load_sequence(ld)]
+        rights = [image_io.to_gray(a) for a in image_io.load_sequence(rd)]
+        vo = svo(stereo_vo.StereoVoConfig(), K, BASELINE, H, W, device=dev)
+        rows = []
+        for left, right in zip(lefts, rights):
+            vo.process(left, right)
+            R, c = vo.camera_to_world()
+            rows.append(np.concatenate([R.ravel(), c]))
+        gap = float(np.abs(traj - np.stack(rows)).max())
+
+        # host syncs by call site over a whole run
+        (rc_s, _, _), syncs = _count_sync_warnings(
+            lambda: _run_command(stereo_vo_demo.main,
+                                 plain + ["--output", out["syncs"]]))
+        check(rc_s == 0, f"cli_vo: stereo_vo_demo returned {rc_s}")
+
+        # one steady-state frame under the profiler
+        seen, traced = [0], []
+
+        def profiled(self, left, right):
+            seen[0] += 1
+            if seen[0] != N_FRAMES // 2 + 1:
+                return process(self, left, right)
+            box = []
+            traced.extend(_trace(lambda: box.append(
+                process(self, left, right)))[0])
+            return box[0]
+        svo.process = profiled
+        try:
+            rc_p, _, _ = _run_command(stereo_vo_demo.main,
+                                      plain + ["--output", out["traced"]])
+        finally:
+            svo.process = process
+        check(rc_p == 0 and traced, "cli_vo: the profiled run failed or "
+                                    "traced nothing")
+
+        # the calibrated path: rectification maps on the card
+        rc_c, log_c, wall_c = _run_command(
+            stereo_vo_demo.main, base + ["--calib", calib, "--output",
+                                         out["calib"]])
+        check(rc_c == 0, f"cli_vo: stereo_vo_demo --calib returned {rc_c}")
+        traj_c = np.loadtxt(out["calib"])
+        oks_c = [line.split("ok=")[1].startswith("True")
+                 for line in log_c.splitlines() if line.startswith("frame ")]
+        text_c, ok_c = _pose_bars(poses, list(traj_c[:, 9:]),
+                                  list(traj_c[:, :9].reshape(-1, 3, 3)),
+                                  oks_c, 0.15)
+    step_ms = 1e3 * float(np.median(step_s[1:]))
+    busy = sum(e.device_time for e in traced) / 1e3
+    klt_ms = sum(e.device_time for e in traced
+                 if "klt_track_kernel" in e.name) / 1e3
+    n_syncs = sum(syncs.values())
+    print(f"cli_vo: stereo_vo_demo {W}x{H}, {N_FRAMES} PNG pairs (written in "
+          f"{write_s:.3f} s): frames/s end to end {N_FRAMES / wall:.3f} (PNG "
+          f"decode included; {1e3 * wall:.1f} ms in all); process() "
+          f"{1e3 * sum(step_s):.1f} ms of it (share "
+          f"{sum(step_s) / wall:.4f}), median step {step_ms:.3f} ms; "
+          f"launches klt_track={launches['klt_track']} window_gather="
+          f"{launches['window_gather']}")
+    print(f"cli_vo: trajectory against a direct StereoVisualOdometry run on "
+          f"the same decoded frames: max |gap| {gap:.3e} (bar 1e-6); "
+          f"accuracy: {text}")
+    print(f"cli_vo: --calib (stereo YAML of the scene's calibration): "
+          f"{N_FRAMES / wall_c:.3f} frames/s end to end; accuracy: {text_c}")
+    print(f"cli_vo: host syncs in one run: {n_syncs} "
+          f"({n_syncs / N_FRAMES:.2f} a frame) by call site: "
+          f"{dict(sorted(syncs.items()))}")
+    print(f"cli_vo: one profiled steady-state frame: {len(traced)} kernels, "
+          f"device busy {busy:.3f} ms (klt_track_kernel {klt_ms:.4f}), idle "
+          f"share {1 - busy / step_ms:.4f} of the median step, "
+          f"{1 - busy / (1e3 * wall / N_FRAMES):.4f} of the mean end-to-end "
+          "frame")
+    check(gap <= 1e-6, f"cli_vo: trajectory differs from the direct run by "
+                       f"{gap}")
+    check(ok, f"cli_vo: accuracy bar missed: {text}")
+    check(ok_c, f"cli_vo: --calib accuracy bar missed: {text_c}")
+    check(klt_ms > 0, "cli_vo: the profiled frame did not run "
+                      "klt_track_kernel")
+    return launches
+
+
+def phase_examples(dev) -> dict:
+    """``examples:`` each of the port's 64 examples once on the card,
+    in-process (``main(["--device", "cuda"])``): each must return 0 with
+    ``OK`` as its last line.  One line an example: host wall ms and both
+    kernels' launches.  Returns the launches of each example that reaches
+    a hand kernel (``EXAMPLE_KERNELS``, and any other that launched one),
+    each naming the kernels it runs."""
+    import importlib
+    import pkgutil
+    import boofcv_tpu_torch.examples as examples
+    from boofcv_tpu_torch.kernels import klt_track as kt
+    from boofcv_tpu_torch.kernels import window_gather as wg
+    names = sorted(m.name for m in pkgutil.iter_modules(examples.__path__))
+    check(len(names) == N_EXAMPLES, f"examples: {len(names)} modules, not "
+                                    f"{N_EXAMPLES}")
+    launches, failed, total = {}, [], 0.0
+    for name in names:
+        mod = importlib.import_module(f"boofcv_tpu_torch.examples.{name}")
+        kt.reset_launch_count()
+        wg.reset_launch_count()
+        rc, log, wall = _run_command(mod.main, ["--device", "cuda"])
+        n = {"klt_track": kt.launch_count(),
+             "window_gather": wg.launch_count()}
+        total += wall
+        last = (log.strip().splitlines() or [""])[-1]
+        print(f"examples: {name}: {1e3 * wall:.1f} ms rc={rc} last line "
+              f"{last!r} launches klt_track={n['klt_track']} window_gather="
+              f"{n['window_gather']}")
+        if rc != 0 or last != "OK" or "device: cuda" not in log:
+            failed.append(name)
+            print(log)
+        want = EXAMPLE_KERNELS.get(name, ())
+        got = {k: v for k, v in n.items() if v or k in want}
+        if got:
+            launches[f"example {name}"] = got
+    print(f"examples: {len(names) - len(failed)} of {len(names)} OK in "
+          f"{total:.1f} s")
+    check(not failed, f"examples: failed: {failed}")
+    return launches
+
+
+def qr_scan_dir(d: str) -> None:
+    """``tests/test_cli.py``'s QR batch: codes "alpha" and "beta" (version
+    1, level M, 5 px modules) and a noise decoy."""
+    from boofcv_tpu_torch.io import image_io
+    from boofcv_tpu_torch.recognition.qr import code as qr, detector
+    os.makedirs(d, exist_ok=True)
+    for i, text in enumerate(["alpha", "beta"]):
+        image_io.save(os.path.join(d, f"{i}.png"),
+                      detector.render(qr.encode(text, 1, "M", i % 8), 5))
+    image_io.save(os.path.join(d, "z.png"),
+                  np.random.default_rng(0).uniform(0, 255, (60, 60)))
+
+
+CLI_BOARD = (4, 5, 0.03)          # inner rows, inner cols, square (m)
+CLI_BOARD_K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1.0]])
+
+
+def board_views_dir(d: str, n_views: int = 5) -> None:
+    """``tests/test_cli.py``'s chessboard views through ``CLI_BOARD_K``,
+    rendered 2x supersampled and box-downsampled (the corner detector needs
+    antialiased edges, as real images have)."""
+    from boofcv_tpu_torch.geo import se3
+    from boofcv_tpu_torch.io import image_io
+    rows, cols, sq = CLI_BOARD
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(0)
+    ss = 2
+    Kss = CLI_BOARD_K * ss
+    Kss[2, 2] = 1.0
+    yy, xx = np.mgrid[0:240 * ss, 0:320 * ss]
+    rays = np.stack([xx, yy, np.ones_like(xx)], -1) @ np.linalg.inv(Kss).T
+    board = np.zeros((rows + 1, cols + 1), bool)
+    board[::2, ::2] = True
+    board[1::2, 1::2] = True
+    for v in range(n_views):
+        w = np.array([0.3, -0.25, 0.1]) * rng.uniform(-1, 1, 3)
+        R = se3.exp_so3(torch.from_numpy(w)).numpy()
+        t = np.array([rng.uniform(-0.02, 0.02), rng.uniform(-0.02, 0.02),
+                      rng.uniform(0.30, 0.45)])
+        d_t = rays @ R                     # direction in the target frame
+        c0 = -R.T @ t
+        s = -c0[2] / np.where(np.abs(d_t[..., 2]) < 1e-12, 1e-12,
+                              d_t[..., 2])
+        P = c0 + s[..., None] * d_t
+        bx = np.floor((P[..., 0] + (cols + 2) * sq / 2) / sq).astype(int) - 1
+        by = np.floor((P[..., 1] + (rows + 2) * sq / 2) / sq).astype(int) - 1
+        inside = (bx >= 0) & (bx <= cols) & (by >= 0) & (by <= rows) \
+            & (s > 0)
+        dark = np.zeros_like(inside)
+        dark[inside] = board[by[inside], bx[inside]]
+        img = np.where(dark, 25.0, 230.0).astype(np.float32)
+        image_io.save(os.path.join(d, f"v{v}.png"),
+                      img.reshape(240, ss, 320, ss).mean((1, 3)))
+
+
+def distorted_capture_dir(d: str) -> np.ndarray:
+    """``tests/test_cli.py``'s lens-distortion case: ``calib.yaml`` (a
+    160x120 Brown camera, k1 -0.22, k2 0.04) and ``in/a.png``, a distorted
+    capture of a texture; returns the ideal image."""
+    from boofcv_tpu_torch.geo import cameras
+    from boofcv_tpu_torch.io import calibration_io as cio
+    from boofcv_tpu_torch.io import image_io, simulate
+    from boofcv_tpu_torch.ip import distort
+    h, w = 120, 160
+    cam = cameras.CameraPinholeBrown(fx=140.0, fy=140.0, cx=w / 2, cy=h / 2,
+                                     width=w, height=h, radial=(-0.22, 0.04))
+    os.makedirs(os.path.join(d, "in"), exist_ok=True)
+    cio.save_pinhole_brown(cam, os.path.join(d, "calib.yaml"))
+    ideal = simulate.noise_texture(np.random.default_rng(0), size=220,
+                                   octaves=5)[:h, :w]
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float64),
+                            torch.arange(w, dtype=torch.float64),
+                            indexing="ij")
+    nx, ny = cameras.pixel_to_norm_undistorted(cam, xs, ys)
+    captured = distort.warp(torch.from_numpy(ideal),
+                            (ny * cam.fy + cam.cy).to(torch.float32),
+                            (nx * cam.fx + cam.cx).to(torch.float32))
+    image_io.save(os.path.join(d, "in", "a.png"),
+                  np.clip(captured.numpy(), 0, 255).astype(np.uint8))
+    return ideal
+
+
+def fiducial_dir(d: str) -> None:
+    """``tests/test_cli.py``'s fiducial case: ``imgs/m.png`` (marker 321,
+    12 px cells, on white) and ``calib.yaml`` (a 220x200 camera, f 200)."""
+    from boofcv_tpu_torch.geo import cameras
+    from boofcv_tpu_torch.io import calibration_io as cio
+    from boofcv_tpu_torch.io import image_io
+    from boofcv_tpu_torch.recognition import fiducial_square as fid
+    img = fid.encode_marker(321, cells_px=12)
+    scene = np.full((200, 220), 255.0, np.float32)
+    scene[40:40 + img.shape[0], 60:60 + img.shape[1]] = img
+    os.makedirs(os.path.join(d, "imgs"), exist_ok=True)
+    image_io.save(os.path.join(d, "imgs", "m.png"), scene.astype(np.uint8))
+    cio.save_pinhole_brown(cameras.CameraPinholeBrown(
+        fx=200.0, fy=200.0, cx=110.0, cy=100.0, width=220, height=200),
+        os.path.join(d, "calib.yaml"))
+
+
+def downsize_dir(d: str) -> np.ndarray:
+    """``tests/test_cli.py``'s downsize input: ``a.png``, 96x128 uniform
+    noise; returns it."""
+    from boofcv_tpu_torch.io import image_io
+    os.makedirs(d, exist_ok=True)
+    img = np.random.default_rng(0).uniform(0, 255, (96, 128)).astype(
+        np.uint8)
+    image_io.save(os.path.join(d, "a.png"), img)
+    return img
+
+
+def phase_cli(dev) -> None:
+    """``cli:`` the eight other commands on the card (``--device cuda``),
+    in-process, each on the data ``tests/test_cli.py`` builds and held to
+    that test's bars (``create_calibration_target``, which it does not
+    test: a 5x6 chessboard of 40 px squares, margin 40, read back at its
+    size).  One line a command: host wall ms and its check."""
+    import importlib
+    import tempfile
+    from boofcv_tpu_torch.io import calibration_io as cio
+    from boofcv_tpu_torch.io import image_io
+    from boofcv_tpu_torch.recognition import fiducial_square as fid
+    from boofcv_tpu_torch.recognition.qr import detector
+    cmd = lambda name: importlib.import_module(
+        f"boofcv_tpu_torch.cli.{name}").main
+    dev_arg = ["--device", "cuda"]
+    results = []
+    with tempfile.TemporaryDirectory() as tmp:
+        p = lambda *a: os.path.join(tmp, *a)
+
+        def run(name, argv, bar):
+            rc, log, wall = _run_command(cmd(name), argv + dev_arg)
+            ok, what = (False, f"rc {rc}") if rc != 0 else bar(log)
+            print(f"cli: {name}: {1e3 * wall:.1f} ms rc={rc} {what}")
+            results.append((name, ok))
+
+        qr_scan_dir(p("qr"))
+        run("batch_scan_qr", ["--images", p("qr")], lambda log: (
+            "alpha" in log and "beta" in log and "decoded 2/3" in log,
+            "decoded " + log.strip().splitlines()[-1].split()[-1]
+            + " (bar 2/3, alpha and beta)"))
+
+        rows, cols, sq = CLI_BOARD
+        board_views_dir(p("board"))
+
+        def calibrated(log):
+            cam = cio.load_pinhole_brown(p("cam.yaml"))
+            return (abs(cam.fx - 300.0) / 300.0 < 0.05
+                    and abs(cam.cx - 160.0) < 10,
+                    f"fx {cam.fx:.4f} cx {cam.cx:.4f} (bars 300 +- 5 %, "
+                    "160 +- 10)")
+        run("camera_calibration", ["--images", p("board"), "--rows",
+                                   str(rows), "--cols", str(cols),
+                                   "--square", str(sq), "--output",
+                                   p("cam.yaml")], calibrated)
+
+        def markers(log):
+            ids = []
+            for mid in (7, 123):
+                img = image_io.load(p("fid", f"fiducial_{mid:04d}.png"))
+                ids += [d["id"] for d in fid.detect(img.astype(np.float32),
+                                                    device=dev)]
+            return ids == [7, 123], f"detected ids {ids} (bar [7, 123])"
+        run("create_fiducial", ["--ids", "7", "123", "--size", "192",
+                                "--output-dir", p("fid")], markers)
+
+        ideal = distorted_capture_dir(p("lens"))
+
+        def undistorted(log):
+            out = image_io.to_gray(image_io.load(p("lens", "out", "a.png")))
+            c = np.s_[20:-20, 20:-20]
+            err = float(np.median(np.abs(out[c].astype(float) - ideal[c])))
+            return ("undistorted 1/1" in log and err < 8.0,
+                    f"median error {err:.3f} (bar 8)")
+        run("batch_remove_distortion", ["--calib", p("lens", "calib.yaml"),
+                                        "--input", p("lens", "in"),
+                                        "--output", p("lens", "out")],
+            undistorted)
+
+        fiducial_dir(p("marker"))
+        run("fiducial_detection", ["--images", p("marker", "imgs"),
+                                   "--calib", p("marker", "calib.yaml"),
+                                   "--size", "0.1"], lambda log: (
+            "id=321" in log and "range=" in log
+            and "found 1 fiducials" in log,
+            log.strip().splitlines()[0]))
+
+        def scanned(log):
+            doc = image_io.to_gray(image_io.load(p("doc.png")))
+            half = doc.shape[1] // 2
+            texts = []
+            for sl in (np.s_[:, :half], np.s_[:, half:]):
+                data, _ = detector.detect_and_decode(
+                    doc[sl].astype(np.float32), device=dev)
+                if data is not None:
+                    texts.append(data.decode())
+            return (sorted(texts) == ["0123456789", "CLI DOC TEST"],
+                    f"scanned back {sorted(texts)}")
+        run("create_qr_document", ["--message", "CLI DOC TEST", "--message",
+                                   "0123456789", "--output", p("doc.png")],
+            scanned)
+
+        img = downsize_dir(p("small", "in"))
+
+        def downsized(log):
+            out = image_io.load(p("small", "out", "a.png"))
+            exp = img.reshape(48, 2, 64, 2).mean((1, 3))
+            err = (float(np.abs(out.astype(float) - exp).max())
+                   if out.shape == (48, 64) else float("inf"))
+            return err <= 1.0, f"shape {out.shape}, max error {err} (bar 1)"
+        run("batch_downsize", ["--input", p("small", "in"), "--output",
+                               p("small", "out"), "--max-size", "64"],
+            downsized)
+
+        def target(log):
+            out = image_io.load(p("target.png"))
+            return (out.shape == (5 * 40 + 80, 6 * 40 + 80)
+                    and out[40, 40] == 0 and out[0, 0] == 255,
+                    f"{out.shape[1]}x{out.shape[0]}")
+        run("create_calibration_target", ["--rows", "5", "--cols", "6",
+                                          "--output", p("target.png")],
+            target)
+    bad = [name for name, ok in results if not ok]
+    check(len(results) == 8 and not bad, f"cli: failed: {bad}")
+
+
 # --- ``--sweep``: both kernels shape by shape, beside other trees' --------
 
 
@@ -6353,6 +6819,12 @@ def main() -> int:
         for phase in (phase_scene, phase_deepboof, phase_io, phase_ip_more):
             phase(dev)
             clock(phase.__name__)
+        launches["cli stereo_vo_demo"] = phase_cli_vo(dev, poses, frames)
+        clock("phase_cli_vo")
+        launches.update(phase_examples(dev))
+        clock("phase_examples")
+        phase_cli(dev)
+        clock("phase_cli")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

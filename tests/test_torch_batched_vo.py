@@ -287,7 +287,8 @@ def test_port_and_chip_smoke_name_no_jax_module():
                 "io/checkpoint.py", "examples/__init__.py",
                 "examples/bundle_adjustment.py", "recognition/tld.py",
                 "recognition/scene.py", "recognition/deepboof.py",
-                "utils/profiling.py", "io/image_io.py"):
+                "utils/profiling.py", "io/image_io.py", "cli/__init__.py",
+                "cli/stereo_vo_demo.py", "examples/visual_odometry_stereo.py"):
         assert root / "boofcv_tpu_torch" / new in files, new
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

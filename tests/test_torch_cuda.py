@@ -1543,3 +1543,133 @@ def test_ip_more_on_card_matches_cpu(cuda):
         assert max(float((x.cpu() - y).abs().max())
                    for x, y in zip(card, cpu)) <= 1e-6
         assert np.abs(cpu[0].numpy() - R).max() < 1e-2
+
+
+# --- the commands and the kernel-path examples -----------------------------
+
+EXAMPLE_PROBES = {
+    # example -> (port class to watch, method, what to keep after a call,
+    #             tolerance)
+    "visual_odometry_stereo": ("sfm.stereo_vo.StereoVisualOdometry",
+                               "camera_to_world", "result", 1e-5),
+    "visual_odometry_depth": ("sfm.depth_vo.DepthVisualOdometry",
+                              "camera_to_world", "result", 1e-5),
+    "visual_odometry_mono_plane": (
+        "sfm.mono_plane_vo.MonoPlaneVisualOdometry", "camera_to_world",
+        "result", 1e-5),
+    "point_feature_tracker": ("feature.point_tracker.PointTrackerKlt",
+                              "active_tracks", "tracks", 1e-3),
+    "video_stabilization": ("sfm.stitch2d.Stitcher", "process", "H", 1e-5),
+    "video_mosaic": ("sfm.stitch2d.Stitcher", "process", "H", 1e-5),
+    "image_stitching": ("sfm.stitch2d.Stitcher", "process", "H", 1e-5),
+}
+# and relative to each entry: the mosaic's homography accumulates
+# translations of up to 150 px over 14 frames, where float32 rounding of
+# the tracks moves an entry by 1e-5 (the family tests' 1e-5 is absolute
+# on 3 frames and translations under 40 px)
+EXAMPLE_RTOL = 1e-6
+
+
+def _probe_example(name, monkeypatch, argv):
+    """Run the port's example ``name`` with ``argv`` and keep, after each
+    call of its probe (``EXAMPLE_PROBES``), the pose, the homography or the
+    tracks (uid, x, y); returns (stdout, kept arrays)."""
+    import contextlib
+    import importlib
+    import io
+    path, method, what, _ = EXAMPLE_PROBES[name]
+    mod, cls = path.rsplit(".", 1)
+    owner = getattr(importlib.import_module(f"boofcv_tpu_torch.{mod}"), cls)
+    real = getattr(owner, method)
+    kept = []
+
+    def probe(self, *args):
+        out = real(self, *args)
+        if what == "result":
+            kept.append(np.concatenate([np.ravel(a) for a in out]))
+        elif what == "H":
+            kept.append(np.array(self.H_mosaic_from_frame).ravel())
+        else:
+            kept.append(np.array([(t.uid, t.x, t.y) for t in out]))
+        return out
+    monkeypatch.setattr(owner, method, probe)
+    ex = importlib.import_module(f"boofcv_tpu_torch.examples.{name}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert ex.main(argv) == 0, buf.getvalue()
+    monkeypatch.setattr(owner, method, real)
+    return buf.getvalue(), kept
+
+
+@pytest.mark.parametrize("name", sorted(EXAMPLE_PROBES))
+def test_kernel_path_example_on_card_matches_cpu(cuda, name, monkeypatch):
+    """Each example that reaches a hand kernel, with the same RANSAC index
+    sets on both devices: run with no ``--device`` it goes to the card and
+    launches ``klt_track`` (and ``window_gather`` where its path spawns
+    stereo tracks), and every pose / homography it reads matches the CPU
+    run's within 1e-5 and 1e-6 of itself (the tracks within 1e-3 px), as
+    the family tests hold the front ends."""
+    start = _same_draws(monkeypatch)
+    start()
+    cpu_out, cpu = _probe_example(name, monkeypatch, ["--device", "cpu"])
+    start()
+    kt.reset_launch_count()
+    wg.reset_launch_count()
+    card_out, card = _probe_example(name, monkeypatch, [])
+    torch.cuda.synchronize()
+    assert "device: cuda" in card_out and "device: cpu" in cpu_out
+    assert kt.launch_count() > 0
+    if name == "visual_odometry_stereo":
+        assert wg.launch_count() > 0
+    tol = EXAMPLE_PROBES[name][3]
+    assert len(card) == len(cpu) > 0
+    for a, b in zip(card, cpu):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, atol=tol, rtol=EXAMPLE_RTOL)
+
+
+def test_stereo_vo_demo_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """``cli.stereo_vo_demo`` on five 240x320 frames of the reference
+    scene, with and without ``--calib``: the card's trajectory (the
+    default device) within 1e-5 of the CPU's with the same index sets, and
+    both kernels launched."""
+    import chip_smoke as cs
+    from boofcv_tpu_torch.cli import stereo_vo_demo
+    from boofcv_tpu_torch.io import calibration_io as cio
+    h, w = 240, 320
+    k = np.array([[240.0, 0.0, 160.0], [0.0, 240.0, 120.0], [0.0, 0.0, 1.0]])
+    _, frames = cs._scene(5, k, h, w, seed=0)
+    ld, rd = cs.write_stereo_dirs(str(tmp_path), frames)
+    cam = cio.CameraPinholeBrown(w, h, 240.0, 240.0, 0.0, 160.0, 120.0)
+    calib = str(tmp_path / "stereo.yaml")
+    cio.save_stereo(cio.StereoParameters(cam, cam, np.eye(3),
+                                         np.array([cs.BASELINE, 0, 0])),
+                    calib)
+    start = _same_draws(monkeypatch)
+    for extra in (["--fx", "240", "--baseline", str(cs.BASELINE)],
+                  ["--calib", calib]):
+        trajs = []
+        for device in (["--device", "cpu"], []):
+            start()
+            kt.reset_launch_count()
+            wg.reset_launch_count()
+            out = str(tmp_path / f"traj{len(trajs)}.txt")
+            assert stereo_vo_demo.main(["--left", ld, "--right", rd,
+                                        "--output", out] + extra
+                                       + device) == 0
+            trajs.append(np.loadtxt(out))
+        torch.cuda.synchronize()
+        assert kt.launch_count() == 4 and wg.launch_count() >= 2
+        assert trajs[0].shape == (5, 12)
+        np.testing.assert_allclose(trajs[1], trajs[0], atol=1e-5, rtol=0)
+
+
+def test_comaniciu_lattice_on_card_equals_cpu(cuda):
+    """Comaniciu's sample lattice is the same IEEE formula on the card as
+    on the CPU, bit for bit (a quotient by a Python scalar would be a
+    multiply by its reciprocal on the card)."""
+    from boofcv_tpu_torch.feature import trackers
+    for n in (7, 24, 100):
+        for got, want in zip(trackers._unit_lattice(n, "cuda"),
+                             trackers._unit_lattice(n, "cpu")):
+            assert torch.equal(got.cpu(), want)
