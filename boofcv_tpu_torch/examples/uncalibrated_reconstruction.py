@@ -1,22 +1,26 @@
 """Metric reconstruction from unordered views with UNKNOWN intrinsics (port
-of ``boofcv_tpu/examples/uncalibrated_reconstruction.py``; its ``--mesh``
-fan-out waits for the port's ``dist/``).
+of ``boofcv_tpu/examples/uncalibrated_reconstruction.py``).
 
 Reference analog: the structure2 pipeline
 (alg/sfm/structure2/GeneratePairwiseImageGraph.java and friends) —
 pairwise graph with 3D-vs-homography model scores, self-calibration, PnP
 growth, global bundle adjustment.  No calibration is given; the focal
-length is recovered and checked against the ground truth.
+length is recovered and checked against the ground truth.  ``--mesh``
+fans the pairwise fits out over the ranks of ``dist.make_mesh`` (every rank
+of a ``torchrun`` job runs the demo; alone, a one-rank group).
 
-    python -m boofcv_tpu_torch.examples.uncalibrated_reconstruction [--device cpu|cuda]
+    python -m boofcv_tpu_torch.examples.uncalibrated_reconstruction [--device cpu|cuda] [--mesh]
 """
 
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 import torch
 
 from boofcv_tpu_torch._config import resolve_device
+from boofcv_tpu_torch.dist import make_mesh
 from boofcv_tpu_torch.examples import parse_device
 from boofcv_tpu_torch.geo import se3
 from boofcv_tpu_torch.sfm import structure2
@@ -24,7 +28,12 @@ from boofcv_tpu_torch.sfm.reconstruction import ImageFeatures
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     dev = resolve_device(parse_device(argv))
+    mesh = None
+    if "--mesh" in argv:
+        mesh = make_mesh(device=dev)
+        print(f"pairwise matching fanned over {mesh.size()} ranks")
 
     rng = np.random.default_rng(24)
     H, W, f = 240, 320, 270.0
@@ -57,7 +66,7 @@ def main(argv=None) -> int:
     it = iter(feats)
     scene = structure2.reconstruct_uncalibrated(
         [np.zeros((H, W), np.float32)] * n_views,
-        detect=lambda im: next(it), device=dev)
+        detect=lambda im: next(it), device=dev, mesh=mesh)
     print(f"device: {dev}")
     print(f"registered views: {len(scene['poses'])}/{n_views}, "
           f"points: {len(scene['points'])}")

@@ -40,12 +40,13 @@ def _arange32(n: int, device) -> torch.Tensor:
 
 
 def score_euclidean_sq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """[Na, D] x [Nb, D] -> [Na, Nb] squared Euclidean distance."""
+    """[..., Na, D] x [..., Nb, D] -> [..., Na, Nb] squared Euclidean
+    distance (leading axes: a batch of independent pairs of sets)."""
     a = a.to(torch.float32)
     b = b.to(torch.float32)
-    a2 = torch.sum(a * a, dim=1, keepdim=True)
-    b2 = torch.sum(b * b, dim=1, keepdim=True)
-    return torch.clamp(a2 + b2.T - 2.0 * (a @ b.T), min=0.0)
+    a2 = torch.sum(a * a, dim=-1, keepdim=True)
+    b2 = torch.sum(b * b, dim=-1, keepdim=True)
+    return torch.clamp(a2 + b2.mT - 2.0 * (a @ b.mT), min=0.0)
 
 
 def score_sad(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -79,25 +80,28 @@ def associate_mutual(scores: torch.Tensor,
                      valid_a: torch.Tensor | None = None,
                      valid_b: torch.Tensor | None = None,
                      max_error: float = INF) -> Matches:
-    """Mutual-nearest-neighbour association from a [Na, Nb] score matrix.
+    """Mutual-nearest-neighbour association from a [Na, Nb] score matrix
+    (or [..., Na, Nb] with [..., Na] / [..., Nb] masks: a batch of
+    independent pairs of sets, every field gaining the leading axes).
 
     Equivalent to AssociateGreedy with backwardsValidation=true: src i and
     dst j match iff j = argmin_j S[i, j] and i = argmin_i S[i, j] and
     S[i, j] <= max_error.  Output capacity = Na (one candidate per
     source)."""
-    na = scores.shape[0]
+    na = scores.shape[-2]
     big = _big()
     s = scores.to(torch.float32)
     if valid_a is not None:
-        s = torch.where(valid_a[:, None], s, big)
+        s = torch.where(valid_a[..., :, None], s, big)
     if valid_b is not None:
-        s = torch.where(valid_b[None, :], s, big)
-    row_min, best_j = torch.min(s, dim=1)            # [Na]
-    best_i = torch.argmin(s, dim=0)                  # [Nb]
-    mutual = best_i[best_j] == torch.arange(na, device=s.device)
+        s = torch.where(valid_b[..., None, :], s, big)
+    row_min, best_j = torch.min(s, dim=-1)           # [..., Na]
+    best_i = torch.argmin(s, dim=-2)                 # [..., Nb]
+    src = _arange32(na, s.device)
+    mutual = torch.take_along_dim(best_i, best_j, dim=-1) == src
     ok = mutual & (row_min <= max_error) & (row_min < big)
-    return Matches(_arange32(na, s.device), best_j.to(torch.int32), row_min,
-                   ok)
+    return Matches(src.expand(row_min.shape), best_j.to(torch.int32),
+                   row_min, ok)
 
 
 def associate_greedy(scores: torch.Tensor, max_error: float = INF,

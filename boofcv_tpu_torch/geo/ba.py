@@ -258,6 +258,25 @@ def _sum_by_view(x, order: ViewOrder):
                         order.offsets)
 
 
+def _gn_view_diag(Jv, order: ViewOrder):
+    """[V, D] Gauss-Newton view diagonal: the squares of each observation's
+    view columns, summed by view in ``order``."""
+    return _sum_by_view(torch.sum(Jv * Jv, dim=2), order)
+
+
+def hvv_diag_chunked(obs_view, Jv, num_views: int, chunk: int = 8192):
+    """[V, D] Gauss-Newton view diagonal, ``chunk`` points at a time: each
+    chunk's terms summed by view in the chunk's own order, the chunks'
+    sums added in chunk order.  (The reference chunks a one-hot product to
+    bound its [chunk, L, V] temporary; here a chunk bounds the sorted
+    [chunk * L, D] copy of the terms.)"""
+    out = Jv.new_zeros((num_views, Jv.shape[-1]))
+    for lo in range(0, obs_view.shape[0], chunk):
+        order = _view_order(obs_view[lo:lo + chunk], num_views)
+        out = out + _gn_view_diag(Jv[lo:lo + chunk], order)
+    return out
+
+
 def _scale_jacobians(obs_view, Jv, Jp, num_views: int, hvv_diag=None,
                      order: ViewOrder | None = None):
     """Jacobi (Marquardt) column scaling: divide each parameter column by
@@ -271,7 +290,7 @@ def _scale_jacobians(obs_view, Jv, Jp, num_views: int, hvv_diag=None,
     if hvv_diag is None:
         if order is None:
             order = _view_order(obs_view, num_views)
-        hvv_diag = _sum_by_view(torch.sum(Jv * Jv, dim=2), order)
+        hvv_diag = _gn_view_diag(Jv, order)
     s_v = torch.clamp(torch.sqrt(hvv_diag), min=1e-6)
     s_p = torch.clamp(torch.sqrt(torch.sum(Jp * Jp, dim=(1, 2))), min=1e-6)
     Jv_s = Jv / s_v[obs_view.long()][:, :, None, :]

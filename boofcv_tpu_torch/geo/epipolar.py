@@ -223,13 +223,15 @@ def decompose_essential(E):
 def select_pose_cheirality(R4, t4, p1, p2):
     """The (R, t) with the most points in front of both cameras.
 
-    R4 [..., 4, 3, 3], t4 [..., 4, 3]; p1, p2 [N, 2] normalized coords.
+    R4 [..., 4, 3, 3], t4 [..., 4, 3]; p1, p2 [N, 2] normalized coords,
+    or [..., N, 2]: a set of its own for each leading index of R4.
     Returns (R [..., 3, 3], t [..., 3], best_idx [...]), the choice made on
     the device (no host sync)."""
     from boofcv_tpu_torch.geo.triangulate import triangulate_two_view_linear
     lead = R4.shape[:-2]                                 # [..., 4]
-    X = triangulate_two_view_linear(p1.expand(lead + p1.shape),
-                                    p2.expand(lead + p2.shape), R4, t4)
+    X = triangulate_two_view_linear(
+        p1[..., None, :, :].expand(lead + p1.shape[-2:]),
+        p2[..., None, :, :].expand(lead + p2.shape[-2:]), R4, t4)
     X2 = X @ R4.transpose(-1, -2).to(X.dtype) + t4[..., None, :].to(X.dtype)
     counts = torch.sum((X[..., 2] > 0) & (X2[..., 2] > 0), dim=-1)
     best = torch.argmax(counts, dim=-1)                  # [...]

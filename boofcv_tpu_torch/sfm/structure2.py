@@ -1,7 +1,5 @@
 """Uncalibrated multi-view reconstruction, structure2 (port of
-``boofcv_tpu/sfm/structure2.py``, all but the sharded pair fan-out
-``_batched_fh_ransac_sharded_fn`` and the ``mesh=`` arguments, which wait
-for the port's ``dist/``).
+``boofcv_tpu/sfm/structure2.py``).
 
 Reference analog: boofcv-sfm alg/sfm/structure2/ —
 GeneratePairwiseImageGraph.java:44 (pairwise graph with per-edge 3D-vs-
@@ -20,7 +18,9 @@ Composed as in the reference:
 
 The pairs of a chunk are the port's stream axis: one ``torch.Generator``
 per pair (F draws first, then H), every reduction per pair, so pair b of a
-chunk is the single-pair call with pair b's generator.
+chunk is the single-pair call with pair b's generator.  With a ``mesh``
+each rank fits its slice of a chunk's pairs and the results are
+all-gathered: the same graph as without one.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from boofcv_tpu_torch._config import resolve_device
+from boofcv_tpu_torch.dist.mesh import all_gather, check_device, shard_index
 from boofcv_tpu_torch.geo import ba, robust
 from boofcv_tpu_torch.sfm import reconstruction
 from boofcv_tpu_torch.sfm.reconstruction import pair_generators
@@ -54,12 +55,27 @@ class PairwiseGraph2:
 
 
 def _batched_fh_ransac(generators, pa, pb, mask, num_hypotheses: int = 256,
-                       threshold_px: float = 2.0, idx_f=None, idx_h=None):
+                       threshold_px: float = 2.0, idx_f=None, idx_h=None,
+                       mesh=None):
     """F-RANSAC and H-RANSAC for a batch of B pairs in one pass over the
     stream axis: pa, pb [B, N, 2] pixels (padded), mask [B, N], one
     generator per pair (F draws, then H draws, from it).  ``idx_f`` [B, K, 7]
-    and ``idx_h`` [B, K, 4] replace the draws.  Returns (F [B, 3, 3],
-    F inliers [B, N], F inlier counts [B], H inlier counts [B])."""
+    and ``idx_h`` [B, K, 4] replace the draws.  With ``mesh`` (B a multiple
+    of its size) each rank fits its slice of the pairs and the results are
+    all-gathered.  Returns (F [B, 3, 3], F inliers [B, N], F inlier counts
+    [B], H inlier counts [B])."""
+    if mesh is not None:
+        rank, n = shard_index(mesh)
+        if pa.shape[0] % n:
+            raise ValueError(f"{pa.shape[0]} pairs do not split over "
+                             f"{n} ranks")
+        k = pa.shape[0] // n
+        mine = slice(rank * k, (rank + 1) * k)
+        cut = lambda a: None if a is None else a[mine]
+        out = _batched_fh_ransac(generators[mine], pa[mine], pb[mine],
+                                 mask[mine], num_hypotheses, threshold_px,
+                                 cut(idx_f), cut(idx_h))
+        return tuple(all_gather(a, mesh) for a in out)
     rf = robust.ransac_fundamental(generators, pa, pb,
                                    num_hypotheses=num_hypotheses,
                                    inlier_threshold_px=threshold_px,
@@ -74,14 +90,20 @@ def _batched_fh_ransac(generators, pa, pb, mask, num_hypotheses: int = 256,
 def generate_pairwise_graph(images, max_features: int = 300, detect=None,
                             min_matches: int = 20, seed: int = 0,
                             pair_chunk: int = 64,
-                            device=None) -> PairwiseGraph2:
+                            device=None, mesh=None) -> PairwiseGraph2:
     """All-pairs matching with F-vs-H model scoring
     (GeneratePairwiseImageGraph.process).  Candidate pairs are padded to a
     common match count and their F and H fits run ``pair_chunk`` pairs at a
     time (the last chunk padded with copies of pair 0, as the reference
-    pads it, when there is more than one chunk).  ``device`` None: the
-    card."""
+    pads it, when there is more than one chunk or a mesh).  ``mesh``: a
+    ``dist.make_mesh`` mesh on ``device``'s kind; each chunk's pairs are
+    split over its ranks (the chunk rounded up to a multiple of its size).
+    ``device`` None: the card."""
     dev = resolve_device(device)
+    if mesh is not None:
+        check_device(mesh, dev)
+        n_ranks = shard_index(mesh)[1]
+        pair_chunk = -(-pair_chunk // n_ranks) * n_ranks
     detect = detect or (lambda im: reconstruction.detect_describe(
         im, max_features, device=dev))
     feats = [detect(im) for im in images]
@@ -116,12 +138,16 @@ def generate_pairwise_graph(images, max_features: int = 300, detect=None,
     for lo in range(0, P, pair_chunk):
         hi = min(lo + pair_chunk, P)
         idx = np.arange(lo, hi)
-        if hi - lo < pair_chunk and P > pair_chunk:
-            idx = np.concatenate(
-                [idx, np.zeros(pair_chunk - (hi - lo), np.int64)])
+        chunk_gens = gens[lo:hi]
+        if hi - lo < pair_chunk and (P > pair_chunk or mesh is not None):
+            pad = pair_chunk - (hi - lo)
+            idx = np.concatenate([idx, np.zeros(pad, np.int64)])
+            # a pad slot draws from a fresh copy of pair 0's generator (the
+            # reference's copy of its key), never from a real pair's
+            chunk_gens = chunk_gens + pair_generators(seed, 1, dev) * pad
         F_b, inl_b, nf_b, nh_b = _batched_fh_ransac(
-            [gens[i] for i in idx], t(pa_all[idx]), t(pb_all[idx]),
-            t(mask_all[idx]))
+            chunk_gens, t(pa_all[idx]), t(pb_all[idx]), t(mask_all[idx]),
+            mesh=mesh)
         F_b = F_b.cpu().numpy()
         inl_b = inl_b.cpu().numpy()
         nf_b = nf_b.cpu().numpy()
@@ -210,7 +236,7 @@ def _metric_graph_from_edges(g: PairwiseGraph2, K, device=None):
 
 def reconstruct_uncalibrated(images, max_features: int = 300, detect=None,
                              ba_iterations: int = 20, seed: int = 0,
-                             device=None):
+                             device=None, mesh=None):
     """The whole uncalibrated pipeline: pairwise graph with F/H scores ->
     shared focal by Sturm's sweep -> calibrated incremental growth ->
     global BA with a shared free focal (golden-section search over f,
@@ -221,10 +247,12 @@ def reconstruct_uncalibrated(images, max_features: int = 300, detect=None,
     the focal.
 
     Returns a dict with "K", "poses" {view: (R, t)}, "points" [M, 3],
-    "graph", "ba_info".  ``device`` None: the card."""
+    "graph", "ba_info".  ``mesh``: the pairwise graph's fits split over
+    its ranks (:func:`generate_pairwise_graph`).  ``device`` None: the
+    card."""
     dev = resolve_device(device)
     g = generate_pairwise_graph(images, max_features, detect, seed=seed,
-                                device=dev)
+                                device=dev, mesh=mesh)
     if not g.edges:
         raise ValueError("no connected 3D view pairs in the graph")
     h, w = images[0].shape[:2]

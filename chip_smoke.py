@@ -2,8 +2,8 @@
 """Drive the PyTorch port's main paths (stereo VO, bundle adjustment, the
 breadth surface, the other VO families and 2-D motion, multi-view SfM,
 fiducials, QR codes and calibration targets, the rest of ip/ and
-feature/, the TLD tracker, bag of words, DeepBoof, io/, the commands and
-the examples) once on one CUDA card.
+feature/, the TLD tracker, bag of words, DeepBoof, io/, the commands, the
+examples and the sharded paths of dist/) once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -207,7 +207,25 @@ Phases, each printed on its own line(s); any failure exits non-zero:
 21. ``examples:`` every example of the port (64) once on the card
     in-process: each returns 0 with ``OK`` last; its ms and launches;
 22. ``cli:`` the eight other commands on the data ``tests/test_cli.py``
-    builds, each held to that test's bar.
+    builds, each held to that test's bar;
+23. ``dist:`` the sharded paths of ``dist/`` through ``dist.make_mesh`` on
+    a one-rank NCCL group (the host has one card): ``optimize_sharded`` at
+    ``ba_scale:``'s V = 1000, P = 100,000, f32 mixed, 3 iterations, in
+    both solver modes against ``ba.optimize`` on the same problem
+    ("cholesky": costs within 1e-6 relative, two solves bit-equal; "pcg",
+    120 CG iterations: final cost within 5e-3 of ``ba.optimize``'s in the
+    reference test's form and below half its first; costs never rise; no
+    host sync), with ms per iteration, kernels, busy ms, idle share, the
+    NCCL kernels' device ms, bytes to the collectives and peak memory
+    beside ``ba.optimize``'s; ``ransac_pnp_sharded`` (512 points, 20 %
+    outliers, 256 hypotheses: R and t within 1e-5 of the truth);
+    ``match_pairs_sharded`` on ``sfm_uncalibrated:``'s scene (190 pairs:
+    inliers above 0.7 of each pair's common points, relative rotations
+    within 1e-2); ``reconstruct_uncalibrated(mesh=)`` (the pairwise graph
+    equal to the unsharded call's, ``sfm_uncalibrated:``'s bars); neither
+    hand kernel launched; then a CPU leg, printed as such: the BA at test
+    size on four gloo processes on the host's CPU, 1-D and 2-D meshes and
+    PCG, against the one-process ``ba.optimize``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -3675,6 +3693,13 @@ def orbit_scene(n_views=S2_VIEWS, n_points=S2_POINTS, h=H, w=W, f=S2_FOCAL,
                 seed=3):
     """``tests/test_structure2.py``'s ``orbit_scene``: an arc of cameras
     around a point cloud with jittered look-at targets, 0.15 px noise."""
+    return orbit_views(n_views, n_points, h, w, f, seed)[:2]
+
+
+def orbit_views(n_views=S2_VIEWS, n_points=S2_POINTS, h=H, w=W, f=S2_FOCAL,
+                seed=3):
+    """``orbit_scene`` and, a view, the ids of the points its features
+    see, in their order."""
     rng = np.random.default_rng(seed)
     pts = np.stack([rng.uniform(-3, 3, n_points),
                     rng.uniform(-2, 2, n_points),
@@ -3682,7 +3707,7 @@ def orbit_scene(n_views=S2_VIEWS, n_points=S2_POINTS, h=H, w=W, f=S2_FOCAL,
     desc = rng.normal(0, 1, (n_points, 64))
     desc /= np.linalg.norm(desc, axis=1, keepdims=True)
     Kf = np.array([[f, 0, (w - 1) / 2], [0, f, (h - 1) / 2], [0, 0, 1.0]])
-    poses, feats = [], []
+    poses, feats, ids = [], [], []
     for v in range(n_views):
         ang = 0.9 * v / n_views * np.pi
         c = np.array([10 * np.sin(ang), 0.5 * np.sin(3 * ang),
@@ -3699,11 +3724,12 @@ def orbit_scene(n_views=S2_VIEWS, n_points=S2_POINTS, h=H, w=W, f=S2_FOCAL,
         idx = np.nonzero(((pr[:, :2] > 6) & (pr[:, :2] < [w - 6, h - 6])
                           ).all(1) & (pc[:, 2] > 0.5))[0]
         idx = idx[rng.permutation(len(idx))]
+        ids.append(idx)
         feats.append(_features(desc, idx,
                                pr[idx, 0] + rng.normal(0, 0.15, len(idx)),
                                pr[idx, 1] + rng.normal(0, 0.15, len(idx)),
                                rng, 0.02))
-    return poses, feats
+    return poses, feats, ids
 
 
 def three_view_scene(n=TV_TRIPLES, outliers=TV_OUTLIERS, f=400.0, h=H, w=W,
@@ -6497,6 +6523,328 @@ def phase_cli(dev) -> None:
     check(len(results) == 8 and not bad, f"cli: failed: {bad}")
 
 
+# --- ``dist:``: the sharded paths on a one-rank NCCL group ----------------
+
+DIST_PCG_ITERATIONS = 120
+DIST_CPU_RANKS = 4
+DIST_CPU_ITERATIONS = 5
+
+
+def _dist_bytes(V: int, D: int, P: int, iters: int, solver: str) -> int:
+    """Bytes one rank hands the collectives in a solve of ``iters`` LM
+    iterations (f32 system, f64 costs): per iteration the Gauss-Newton
+    diagonal and ``gv_t`` [V, D], ``S`` [V, V, D, D] (all-reduced, or
+    reduce-scattered by view rows), two costs, and with PCG one all-gather
+    of [V, D] for the preconditioned start and two a CG iteration; once,
+    the final cost and the points' all-gather."""
+    per_iter = 4 * (2 * V * D + V * V * D * D) + 2 * 8
+    if solver == "pcg":
+        per_iter += 4 * V * D * (1 + 2 * DIST_PCG_ITERATIONS)
+    return iters * per_iter + 8 + 4 * P * 3
+
+
+def _dist_ba(dev, mesh) -> None:
+    """``optimize_sharded`` at ``ba_scale:``'s size in both solver modes,
+    each held against ``ba.optimize`` on the same problem."""
+    from boofcv_tpu_torch.dist import ba_sharded
+    from boofcv_tpu_torch.geo import ba
+    Rs, ts, pts, obs_xy, obs_view, obs_valid, fixed = big_scene()
+    prob = ba.make_problem(Rs, ts, pts, obs_xy, obs_view, obs_valid,
+                           fixed_views=fixed, dtype=torch.float32, device=dev)
+    V, P, D, iters = len(Rs), len(pts), 6, 3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, info_ref = ba.optimize(prob, iterations=iters)
+    torch.cuda.synchronize()
+    peak_ref = torch.cuda.max_memory_allocated(dev) / 2**20
+    ref_costs = _check_costs("dist: ba.optimize", info_ref)
+    c_ref = float(info_ref["final_cost"])
+    for solver in ("cholesky", "pcg"):
+        solve = lambda: ba_sharded.optimize_sharded(
+            prob, mesh, iterations=iters, reduced_solver=solver,
+            pcg_iterations=DIST_PCG_ITERATIONS)
+        solve()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        (out, info), syncs = _count_sync_warnings(solve)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        tag = f"dist: ba {solver}"
+        costs = _check_costs(tag, info)
+        again, info2 = solve()
+        same = bool(all(torch.equal(getattr(out, k), getattr(again, k))
+                        for k in ("R", "t", "points"))
+                    and torch.equal(info["costs"], info2["costs"]))
+        ms = _solve_ms(solve, reps=3, warm_up=False)
+        events, _ = _trace(solve, cpu=False)
+        busy = sum(e.device_time for e in events) / 1e3
+        nccl = [e for e in events if "nccl" in e.name.lower()]
+        nccl_ms = sum(e.device_time for e in nccl) / 1e3
+        med = float(np.median(ms))
+        c = float(info["final_cost"])
+        rel = np.abs(costs - ref_costs) / np.abs(ref_costs)
+        n_bytes = _dist_bytes(V, D, P, iters, solver)
+        print(f"{tag}: V={V} P={P} L={obs_view.shape[1]} f32 mixed, {iters} "
+              f"iterations on a one-rank NCCL group"
+              + (f", {DIST_PCG_ITERATIONS} CG iterations"
+                 if solver == "pcg" else "")
+              + f": costs={[float(f'{x:.6e}') for x in costs]} "
+              f"(ba.optimize {[float(f'{x:.6e}') for x in ref_costs]}; "
+              f"largest relative gap {rel.max():.3e}); ms per solve="
+              f"{[round(m, 3) for m in ms]} ms per iteration="
+              f"{med / iters:.3f}; {len(events)} kernels, device busy "
+              f"{busy:.3f} ms, idle share {1 - busy / med:.4f}; NCCL kernels "
+              f"{len(nccl)}, device ms {nccl_ms:.4f}; bytes to the "
+              f"collectives per iteration={n_bytes / iters:.0f} (S "
+              f"{4 * V * V * D * D} of them; {n_bytes} a solve); host syncs="
+              f"{sum(syncs.values())} {dict(sorted(syncs.items()))}; two "
+              f"solves bit-equal={same}; peak device memory MiB={peak:.1f} "
+              f"(ba.optimize {peak_ref:.1f}, the port's [V, V, D, D] "
+              f"layout)")
+        check(torch.isfinite(out.points).all() and torch.isfinite(out.R).all()
+              and out.R.shape == prob.R.shape, f"{tag}: non-finite result")
+        check(sum(syncs.values()) == 0, f"{tag}: host syncs in the solve: "
+                                        f"{dict(syncs)}")
+        if solver == "cholesky":
+            check(rel.max() <= 1e-6, f"{tag}: costs {rel.max()} relative "
+                                     "from ba.optimize's")
+            check(same, f"{tag}: two solves differ in bits")
+        else:
+            check(abs(c - c_ref) <= 5e-3 * (1.0 + abs(c_ref)),
+                  f"{tag}: final cost {c} against ba.optimize's {c_ref}")
+            check(c < 0.5 * costs[0], f"{tag}: final cost {c} not below "
+                                      f"half the first {costs[0]}")
+
+
+def _dist_ransac(dev, mesh) -> None:
+    """``ransac_pnp_sharded``: 512 points, 20 % outliers, 256 hypotheses
+    (the JAX test's scene at 512 points)."""
+    from boofcv_tpu_torch.dist.ransac_sharded import ransac_pnp_sharded
+    rng = np.random.default_rng(0)
+    n, n_out = 512, 512 // 5
+    world = np.concatenate([rng.uniform(-2, 2, (n, 2)),
+                            rng.uniform(4, 8, (n, 1))], 1)
+    R_gt, t_gt = _rodrigues([0.1, -0.2, 0.05]), np.array([0.3, -0.1, 0.5])
+    Xc = world @ R_gt.T + t_gt
+    obs = Xc[:, :2] / Xc[:, 2:]
+    obs[:n_out] += rng.uniform(0.05, 0.2, (n_out, 2))
+    w, o = (torch.from_numpy(a).to(dev) for a in (world, obs))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    call = lambda: ransac_pnp_sharded(mesh, gen, w, o,
+                                      num_hypotheses_per_device=256,
+                                      inlier_threshold=1e-5)
+    call()
+    (res, (R, t)), syncs = _count_sync_warnings(call)
+    ms = _solve_ms(call, reps=5, warm_up=False)
+    n_kernels, busy, _ = _profile_call(call)
+    med = float(np.median(ms))
+    inl = res.inliers.cpu().numpy()
+    r_err = float(np.abs(R.cpu().numpy() - R_gt).max())
+    t_err = float(np.abs(t.cpu().numpy() - t_gt).max())
+    print(f"dist: ransac_pnp_sharded {n} points, {n_out} outliers, 256 "
+          f"hypotheses on one rank: inliers {int(res.num_inliers)} (true "
+          f"kept {inl[n_out:].mean():.4f}, outliers taken "
+          f"{inl[:n_out].mean():.4f}); R error {r_err:.3e}, t error "
+          f"{t_err:.3e} (bar 1e-5); ms per call={[round(m, 3) for m in ms]}; "
+          f"{n_kernels} kernels, device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / med:.4f}; host syncs={sum(syncs.values())} "
+          f"{dict(sorted(syncs.items()))}")
+    check(r_err < 1e-5 and t_err < 1e-5, "dist: ransac_pnp_sharded pose off")
+    check(inl[n_out:].mean() > 0.95 and inl[:n_out].mean() < 0.2,
+          "dist: ransac_pnp_sharded inliers off")
+
+
+def _dist_matching(dev, mesh) -> None:
+    """``match_pairs_sharded`` on ``sfm_uncalibrated:``'s orbit scene: 20
+    views, 190 pairs, 64-dimensional descriptors."""
+    from boofcv_tpu_torch.dist.matching_sharded import match_pairs_sharded
+    poses, feats, ids = orbit_views(S2_VIEWS, S2_POINTS)
+    n = max(len(f.xs) for f in feats)
+    desc = np.zeros((S2_VIEWS, n, 64), np.float32)
+    xy = np.zeros((S2_VIEWS, n, 2))
+    for v, f in enumerate(feats):
+        desc[v, :len(f.xs)] = f.desc
+        xy[v, :len(f.xs)] = np.stack([f.xs, f.ys], 1)
+    pairs = np.array([(a, b) for a in range(S2_VIEWS)
+                      for b in range(a + 1, S2_VIEWS)])
+    Kf = np.array([[S2_FOCAL, 0, (W - 1) / 2], [0, S2_FOCAL, (H - 1) / 2],
+                   [0, 0, 1.0]])
+    call = lambda: match_pairs_sharded(mesh, desc, xy, pairs,
+                                       np.linalg.inv(Kf))
+    out, syncs = _count_sync_warnings(call)
+    ms = _solve_ms(call, reps=1, warm_up=False)
+    common = np.array([len(np.intersect1d(ids[a], ids[b])) for a, b in pairs])
+    share = out["num_inliers"] / common
+    r_err = np.array([np.abs(out["R"][k] - poses[b][0] @ poses[a][0].T).max()
+                      for k, (a, b) in enumerate(pairs)])
+    print(f"dist: match_pairs_sharded {len(pairs)} pairs of {S2_VIEWS} views "
+          f"(up to {n} features, 64-d) on one rank: inliers over the common "
+          f"points min {share.min():.4f} median {np.median(share):.4f} (bar "
+          f"0.7); relative rotation error max {r_err.max():.3e} (bar 1e-2); "
+          f"ms per call={[round(m, 3) for m in ms]} (not profiled: the trace "
+          f"of its hundreds of thousands of launches takes the profiler "
+          f"minutes); host syncs={sum(syncs.values())}")
+    check(out["num_inliers"].shape == (len(pairs),) and share.min() > 0.7
+          and r_err.max() < 1e-2, "dist: match_pairs_sharded below its bars")
+
+
+def _dist_reconstruction(dev, mesh) -> None:
+    """``reconstruct_uncalibrated(mesh=)`` on ``sfm_uncalibrated:``'s scene:
+    the pairwise graph equal to the unsharded call's, and that phase's
+    bars."""
+    from boofcv_tpu_torch.sfm import structure2
+    poses, feats = orbit_scene(S2_VIEWS, S2_POINTS)
+    imgs = [np.zeros((H, W), np.float32)] * S2_VIEWS
+
+    def detect():
+        it = iter(feats)
+        return lambda im: next(it)
+    plain = structure2.generate_pairwise_graph(imgs, detect=detect(),
+                                               device=dev)
+    run = lambda: structure2.reconstruct_uncalibrated(
+        imgs, detect=detect(), device=dev, mesh=mesh)
+    scene, _ = _multiview("dist", f"reconstruct_uncalibrated(mesh=) "
+                          f"{S2_VIEWS} views x {S2_POINTS} points on one "
+                          "rank", run, dev, reps=1, long_call=True)
+    edges = scene["graph"].edges
+    same = (sorted(edges) == sorted(plain.edges) and all(
+        np.array_equal(edges[k].f_inliers, e.f_inliers)
+        for k, e in plain.edges.items()))
+    views = list(range(S2_VIEWS))
+    f_est = scene["K"][0, 0]
+    ferr = abs(f_est - S2_FOCAL) / S2_FOCAL
+    err, span = _centre_error(poses, [scene["poses"].get(v, (np.eye(3),
+                                                             np.zeros(3)))
+                                      for v in views])
+    print(f"dist: reconstruct_uncalibrated(mesh=): {len(edges)} edges, the "
+          f"same edges and F inliers as the unsharded graph={same}; "
+          f"{len(scene['poses'])}/{S2_VIEWS} views; focal {f_est:.4f} "
+          f"(error {ferr:.6f}, bar 0.05); camera-centre error "
+          f"{err / span:.6f} of the span (bar 0.01)")
+    check(same, "dist: the sharded pairwise graph differs")
+    check(sorted(scene["poses"]) == views and ferr < 0.05
+          and err < 0.01 * span, "dist: reconstruct_uncalibrated(mesh=) "
+                                 "below its bars")
+
+
+def _dist_cpu_rank(rank, world, store, out_dir, prob) -> None:
+    """One rank of the CPU leg: the problem through the 1-D mesh, the 2-D
+    (host, shard) mesh and PCG."""
+    import datetime
+    import pickle
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        from boofcv_tpu_torch.dist import ba_sharded, mesh as dmesh
+        from boofcv_tpu_torch.geo import ba
+        p = ba.problem_from_numpy(prob, device="cpu")
+        res = {}
+        for name, mesh, kw in (
+                ("1d", dmesh.make_mesh(device="cpu"), {}),
+                ("2d", dmesh.make_mesh_2d(2, world // 2, device="cpu"), {}),
+                ("pcg", dmesh.make_mesh(device="cpu"),
+                 {"reduced_solver": "pcg", "pcg_iterations": 200})):
+            out, info = ba_sharded.optimize_sharded(
+                p, mesh, iterations=DIST_CPU_ITERATIONS, **kw)
+            res[name] = {"costs": info["costs"].numpy(),
+                         "R": out.R.numpy(), "points": out.points.numpy()}
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_cpu_leg() -> None:
+    """The same BA at test size on a four-process gloo group on this
+    host's CPU (a CPU figure: it holds the collectives on this host's
+    torch), against the one-process ``ba.optimize``."""
+    import pickle
+    import tempfile
+    from boofcv_tpu_torch.geo import ba
+    Rs, ts, pts, obs_xy, obs_view, obs_valid, fixed = window_ba_scene(
+        V=22, P=401, L=6, seed=3)
+    prob = ba.make_problem(Rs, ts, pts, obs_xy, obs_view, obs_valid,
+                           fixed_views=fixed, device="cpu")
+    _, info_ref = ba.optimize(prob, iterations=DIST_CPU_ITERATIONS)
+    ref = info_ref["costs"].numpy()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = torch.multiprocessing.start_processes(
+            _dist_cpu_rank, args=(DIST_CPU_RANKS, os.path.join(tmp, "store"),
+                                  tmp, ba.problem_to_numpy(prob)),
+            nprocs=DIST_CPU_RANKS, join=False, start_method="spawn")
+        deadline = time.monotonic() + 300
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise SmokeFailure("dist: the CPU leg's ranks did not finish "
+                                   "in 300 s")
+        ranks = []
+        for r in range(DIST_CPU_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    wall = time.perf_counter() - t0
+    agree = all(np.array_equal(ranks[0][m][k], other[m][k])
+                for other in ranks[1:] for m in ranks[0] for k in ranks[0][m])
+    got = ranks[0]
+    gap_1d = float((np.abs(got["1d"]["costs"] - ref) / ref).max())
+    c1, c2, cp = (float(got[m]["costs"][-1]) for m in ("1d", "2d", "pcg"))
+    gap_2d = abs(c2 - c1) / (1.0 + abs(c1))
+    gap_pcg = abs(cp - c1) / (1.0 + abs(c1))
+    print(f"dist: CPU leg (a CPU figure: {DIST_CPU_RANKS} gloo processes on "
+          f"the card's host, torch {torch.__version__}, V={len(Rs)} P="
+          f"{len(pts)} float64, {DIST_CPU_ITERATIONS} iterations): every rank "
+          f"the same bits={agree}; 1-D costs within {gap_1d:.3e} relative of "
+          f"the one-process ba.optimize (bar 1e-6); 2-D (2 x "
+          f"{DIST_CPU_RANKS // 2}) final cost within {gap_2d:.3e} of the 1-D "
+          f"(bar 1e-8); PCG (200 iterations, views padded to a multiple of "
+          f"{DIST_CPU_RANKS}) within {gap_pcg:.3e} (bar 1e-4); {wall:.1f} s "
+          f"with the processes' start")
+    check(agree and gap_1d <= 1e-6 and gap_2d <= 1e-8 and gap_pcg <= 1e-4,
+          "dist: the CPU leg's ranks disagree or miss their bars")
+
+
+def phase_dist(dev) -> None:
+    """``dist:`` the sharded paths through ``dist.make_mesh`` on the card (a
+    one-rank NCCL group: the host has one card), then the CPU leg."""
+    import torch.distributed as dist
+    from boofcv_tpu_torch.dist import make_mesh
+    from boofcv_tpu_torch.kernels import klt_track as kt
+    from boofcv_tpu_torch.kernels import window_gather as wg
+    kt.reset_launch_count()
+    wg.reset_launch_count()
+    mesh = make_mesh(device=dev)
+    walls = {}
+    try:
+        print(f"dist: mesh {mesh.mesh.tolist()} on {mesh.device_type}, "
+              f"backend {dist.get_backend()}, NCCL "
+              f"{torch.cuda.nccl.version()}")
+        check(dist.get_backend() == "nccl", "dist: the card's group is not "
+                                            "NCCL")
+        for part in (_dist_ba, _dist_ransac, _dist_matching,
+                     _dist_reconstruction):
+            t0 = time.perf_counter()
+            part(dev, mesh)
+            walls[part.__name__] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    print(f"dist: hand-kernel launches over the phase: window_gather "
+          f"{wg.launch_count()}, klt_track {kt.launch_count()} (dist/ "
+          f"reaches neither)")
+    check(wg.launch_count() == 0 and kt.launch_count() == 0,
+          "dist: a hand kernel launched on a path that reaches none")
+    t0 = time.perf_counter()
+    _dist_cpu_leg()
+    walls["_dist_cpu_leg"] = time.perf_counter() - t0
+    print("dist: wall s by part (measurements included): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in walls.items()))
+
+
+
 # --- ``--sweep``: both kernels shape by shape, beside other trees' --------
 
 
@@ -6825,6 +7173,8 @@ def main() -> int:
         clock("phase_examples")
         phase_cli(dev)
         clock("phase_cli")
+        phase_dist(dev)
+        clock("phase_dist")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

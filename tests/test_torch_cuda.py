@@ -1673,3 +1673,63 @@ def test_comaniciu_lattice_on_card_equals_cpu(cuda):
         for got, want in zip(trackers._unit_lattice(n, "cuda"),
                              trackers._unit_lattice(n, "cpu")):
             assert torch.equal(got.cpu(), want)
+
+
+@pytest.fixture
+def nccl_group(cuda):
+    """No process group before the test; whatever it starts is torn down
+    after it."""
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("solver", ("cholesky", "pcg"))
+def test_sharded_ba_on_one_nccl_rank_matches_optimize(cuda, nccl_group,
+                                                       solver):
+    """``optimize_sharded`` on the one-rank NCCL group ``make_mesh`` starts
+    on the card, against ``ba.optimize`` on the card: costs within 1e-6
+    relative ("cholesky"; the same arithmetic) or 1e-4 ("pcg", 120
+    iterations on 30 views); no host sync inside the solve."""
+    import warnings
+    import torch.distributed as dist
+    from boofcv_tpu_torch.dist import ba_sharded, make_mesh
+    from boofcv_tpu_torch.geo import ba
+    mesh = make_mesh()
+    assert dist.get_backend() == "nccl" and mesh.device_type == "cuda"
+    prob = _ba_scene(torch.float32, cuda, V=30, P=1500, L=8, seed=1)
+    ref, info_ref = ba.optimize(prob, iterations=8)
+    solve = lambda: ba_sharded.optimize_sharded(
+        prob, mesh, iterations=8, reduced_solver=solver, pcg_iterations=120)
+    solve()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out, info = solve()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert not syncs, syncs
+    rtol = 1e-6 if solver == "cholesky" else 1e-4
+    np.testing.assert_allclose(info["costs"].cpu().numpy(),
+                               info_ref["costs"].cpu().numpy(), rtol=rtol)
+    assert float(info["final_cost"]) < 1e-2 * float(info["initial_cost"])
+    assert out.R.shape == ref.R.shape and out.points.shape == ref.points.shape
+
+
+def test_cuda_mesh_with_a_failed_nccl_start_raises(cuda, nccl_group,
+                                                   monkeypatch):
+    """A failed NCCL start reaches the caller: no gloo group, no CPU run."""
+    import torch.distributed as dist
+    from boofcv_tpu_torch.dist import make_mesh
+
+    def refuse(*args, **kwargs):
+        raise dist.DistBackendError("NCCL communicator failed to start")
+    monkeypatch.setattr(dist, "init_process_group", refuse)
+    with pytest.raises(dist.DistBackendError):
+        make_mesh()
+    assert not dist.is_initialized()
