@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from boofcv_tpu_torch.ip import census as census_mod
 from boofcv_tpu_torch.kernels.window_gather import as_planes, gather_windows
+from boofcv_tpu_torch.utils.profiling import span
 
 INVALID = -1.0
 
@@ -265,37 +266,40 @@ def sparse_block_match(left: torch.Tensor, right: torch.Tensor,
     if score is None:
         raise ValueError(f"sparse_block_match scores error 'sad', 'sad_xla' "
                          f"or 'ssd', not {cfg.error!r}")
-    left = as_planes(left)
-    right = as_planes(right)
-    n_disp = cfg.max_disparity - cfg.min_disparity
-    costs = score(left, right, ys, xs, cfg)
-    at = lambda d: torch.gather(costs, -1, d[..., None])[..., 0]
-    best = torch.argmin(costs, dim=-1)
-    cbest = at(best)
-    valid = (xs - (cfg.min_disparity + best) >= 0) & (cbest < 1e17)
-    if cfg.max_per_pixel_error > 0:
-        area = (2 * cfg.radius_x + 1) * (2 * cfg.radius_y + 1)
-        # SSD costs are squared per-pixel errors: the bound is squared too
-        per_pixel = cfg.max_per_pixel_error ** (2 if cfg.error == "ssd" else 1)
-        valid &= cbest <= per_pixel * area
-    if cfg.texture_threshold > 0:
-        d_idx = torch.arange(n_disp, device=costs.device)
-        near = torch.abs(d_idx - best[..., None]) <= 1
-        c2 = torch.amin(torch.where(near, float("inf"), costs), dim=-1)
-        valid &= (((c2 - cbest)
-                   > cfg.texture_threshold * torch.clamp(cbest, min=1e-6))
-                  | ~torch.isfinite(c2))
+    with span("sad"):
+        left = as_planes(left)
+        right = as_planes(right)
+        n_disp = cfg.max_disparity - cfg.min_disparity
+        costs = score(left, right, ys, xs, cfg)
+        at = lambda d: torch.gather(costs, -1, d[..., None])[..., 0]
+        best = torch.argmin(costs, dim=-1)
+        cbest = at(best)
+        valid = (xs - (cfg.min_disparity + best) >= 0) & (cbest < 1e17)
+        if cfg.max_per_pixel_error > 0:
+            area = (2 * cfg.radius_x + 1) * (2 * cfg.radius_y + 1)
+            # SSD costs are squared per-pixel errors: the bound is squared too
+            per_pixel = cfg.max_per_pixel_error ** (
+                2 if cfg.error == "ssd" else 1)
+            valid &= cbest <= per_pixel * area
+        if cfg.texture_threshold > 0:
+            d_idx = torch.arange(n_disp, device=costs.device)
+            near = torch.abs(d_idx - best[..., None]) <= 1
+            c2 = torch.amin(torch.where(near, float("inf"), costs), dim=-1)
+            valid &= (((c2 - cbest)
+                       > cfg.texture_threshold * torch.clamp(cbest, min=1e-6))
+                      | ~torch.isfinite(c2))
 
-    disp = best.to(torch.float32)
-    if cfg.subpixel:
-        # parabola through the best cost and its two neighbours
-        cm = at(torch.clamp(best - 1, 0, n_disp - 1))
-        cp = at(torch.clamp(best + 1, 0, n_disp - 1))
-        denom = cm - 2.0 * cbest + cp
-        off = torch.where(denom > 1e-9, 0.5 * (cm - cp) / denom, 0.0)
-        interior = (best > 0) & (best < n_disp - 1)
-        disp = disp + torch.where(interior, torch.clamp(off, -0.5, 0.5), 0.0)
-    return disp + cfg.min_disparity, valid
+        disp = best.to(torch.float32)
+        if cfg.subpixel:
+            # parabola through the best cost and its two neighbours
+            cm = at(torch.clamp(best - 1, 0, n_disp - 1))
+            cp = at(torch.clamp(best + 1, 0, n_disp - 1))
+            denom = cm - 2.0 * cbest + cp
+            off = torch.where(denom > 1e-9, 0.5 * (cm - cp) / denom, 0.0)
+            interior = (best > 0) & (best < n_disp - 1)
+            disp = disp + torch.where(interior, torch.clamp(off, -0.5, 0.5),
+                                      0.0)
+        return disp + cfg.min_disparity, valid
 
 
 # ---------------------------------------------------------------------------

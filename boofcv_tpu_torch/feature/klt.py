@@ -38,6 +38,7 @@ from boofcv_tpu_torch.ip.interpolate import (sample_rect_bilinear,
 from boofcv_tpu_torch.kernels.klt_track import klt_track_cuda
 from boofcv_tpu_torch.kernels.window_gather import (aligned_window_origin,
                                                     as_planes, gather_windows)
+from boofcv_tpu_torch.utils.profiling import span
 
 # Fault codes (KltTrackFault analog)
 TRACK_OK = 0
@@ -254,13 +255,17 @@ def track_pyramid(pyramid: Sequence[torch.Tensor], templates: KltTemplates,
     kernel on CUDA tensors; the gather method is the plain version on
     either."""
     _level_method(cfg)
-    if ys.device.type == "cpu" or cfg.method == "gather":
-        return track_pyramid_reference(pyramid, templates, ys, xs, scales,
-                                       cfg)
-    f32 = lambda t: t.to(torch.float32).contiguous()
-    cy, cx, fault, _ = klt_track_cuda(
-        [as_planes(p) for p in pyramid], [f32(t) for t in templates.desc],
-        [f32(t) for t in templates.grad_x], [f32(t) for t in templates.grad_y],
-        f32(ys), f32(xs), scales, cfg.template_radius, cfg.max_iterations,
-        cfg.max_per_pixel_error, cfg.min_determinant, cfg.convergence_tol)
-    return cy, cx, fault
+    with span("klt"):
+        if ys.device.type == "cpu" or cfg.method == "gather":
+            return track_pyramid_reference(pyramid, templates, ys, xs,
+                                           scales, cfg)
+        f32 = lambda t: t.to(torch.float32).contiguous()
+        cy, cx, fault, _ = klt_track_cuda(
+            [as_planes(p) for p in pyramid],
+            [f32(t) for t in templates.desc],
+            [f32(t) for t in templates.grad_x],
+            [f32(t) for t in templates.grad_y],
+            f32(ys), f32(xs), scales, cfg.template_radius,
+            cfg.max_iterations, cfg.max_per_pixel_error, cfg.min_determinant,
+            cfg.convergence_tol)
+        return cy, cx, fault

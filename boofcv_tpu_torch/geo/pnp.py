@@ -14,6 +14,7 @@ from boofcv_tpu_torch.geo import se3
 from boofcv_tpu_torch.geo.epipolar import homography_dlt
 from boofcv_tpu_torch.geo.smalllinalg import (_eigh_sym, cubic_roots, det3,
                                               inv_spd, quartic_roots, solve33)
+from boofcv_tpu_torch.utils.profiling import span
 
 
 def absolute_orientation(world: torch.Tensor, cam: torch.Tensor,
@@ -366,22 +367,23 @@ def gauss_newton_pose(R, t, world, obs, weights=None, iterations: int = 10,
     The convergence iterations run in float32, then two Newton-polar steps
     R(3I - R^T R)/2 in float64 restore orthogonality, then
     ``polish_iterations`` float64 steps (0 on the VO path)."""
-    if weights is None:
-        weights = torch.ones(world.shape[:-1], dtype=torch.float64,
-                             device=world.device)
-    fast_iters = iterations - polish_iterations
-    if fast_iters > 0:
-        R, t = _gn_pose_loop(R, t, world, obs, weights, fast_iters,
-                             max(damping, 1e-12), torch.float32, 1e-6)
-        R = R.to(torch.float64)
-        eye = torch.eye(3, dtype=torch.float64, device=R.device)
-        for _ in range(2):
-            R = R @ (1.5 * eye - 0.5 * (R.transpose(-1, -2) @ R))
-    if polish_iterations > 0:
-        R, t = _gn_pose_loop(R, t, world, obs, weights,
-                             min(polish_iterations, iterations),
-                             damping, torch.float64, 1e-14)
-    return R.to(torch.float64), t.to(torch.float64)
+    with span("refine"):
+        if weights is None:
+            weights = torch.ones(world.shape[:-1], dtype=torch.float64,
+                                 device=world.device)
+        fast_iters = iterations - polish_iterations
+        if fast_iters > 0:
+            R, t = _gn_pose_loop(R, t, world, obs, weights, fast_iters,
+                                 max(damping, 1e-12), torch.float32, 1e-6)
+            R = R.to(torch.float64)
+            eye = torch.eye(3, dtype=torch.float64, device=R.device)
+            for _ in range(2):
+                R = R @ (1.5 * eye - 0.5 * (R.transpose(-1, -2) @ R))
+        if polish_iterations > 0:
+            R, t = _gn_pose_loop(R, t, world, obs, weights,
+                                 min(polish_iterations, iterations),
+                                 damping, torch.float64, 1e-14)
+        return R.to(torch.float64), t.to(torch.float64)
 
 
 def refine_pnp(R, t, world, obs, iterations: int = 10, damping: float = 1e-8):

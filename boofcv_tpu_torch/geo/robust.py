@@ -23,6 +23,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from boofcv_tpu_torch.utils.profiling import span
+
 
 class RansacResult(NamedTuple):
     model: object              # best model (tuple of tensors)
@@ -333,19 +335,21 @@ def ransac_pnp(generator: Optional[torch.Generator], world: torch.Tensor,
             o.to(torch.float32)[..., None, :, :])
         return torch.where(ok[..., None], err, float("inf"))
 
-    result = ransac(generator, (world, obs), solver, scorer, sample_size=3,
-                    num_hypotheses=num_hypotheses,
-                    inlier_threshold=inlier_threshold,
-                    valid_mask=valid_mask, solutions_per_sample=4, idx=idx)
-    R, t, _ = result.model
-    # masked rows must be finite: inf * 0 = NaN would poison the normal
-    # equations, so they are replaced rather than only zero-weighted
-    mask = result.inliers
-    w64 = torch.where(mask[..., None], world.to(torch.float64), 1.0)
-    o64 = torch.where(mask[..., None], obs.to(torch.float64), 0.0)
-    Rr, tr = pnp.gauss_newton_pose(R, t, w64, o64,
-                                   weights=mask.to(torch.float64),
-                                   iterations=refine_iterations,
-                                   damping=1e-9,
-                                   polish_iterations=polish_iterations)
+    with span("ransac"):
+        result = ransac(generator, (world, obs), solver, scorer,
+                        sample_size=3, num_hypotheses=num_hypotheses,
+                        inlier_threshold=inlier_threshold,
+                        valid_mask=valid_mask, solutions_per_sample=4,
+                        idx=idx)
+        R, t, _ = result.model
+        # masked rows must be finite: inf * 0 = NaN would poison the normal
+        # equations, so they are replaced rather than only zero-weighted
+        mask = result.inliers
+        w64 = torch.where(mask[..., None], world.to(torch.float64), 1.0)
+        o64 = torch.where(mask[..., None], obs.to(torch.float64), 0.0)
+        Rr, tr = pnp.gauss_newton_pose(R, t, w64, o64,
+                                       weights=mask.to(torch.float64),
+                                       iterations=refine_iterations,
+                                       damping=1e-9,
+                                       polish_iterations=polish_iterations)
     return result, (Rr, tr)

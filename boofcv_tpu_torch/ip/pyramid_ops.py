@@ -15,6 +15,7 @@ from boofcv_tpu_torch.core.border import BorderType
 from boofcv_tpu_torch.core.kernel import gaussian_kernel
 from boofcv_tpu_torch.core.pyramid import PyramidConfig
 from boofcv_tpu_torch.ip import blur, convolve, derivative
+from boofcv_tpu_torch.utils.profiling import span
 
 
 def _octave_steps(config: PyramidConfig):
@@ -58,9 +59,15 @@ def pyramid_average(image: torch.Tensor,
     floor(h/s).  When every leading index views one frame (an expanded
     tensor: the streams of a batched step replaying one sequence) the
     pyramid is built once and its levels are expanded the same way."""
+    with span("pyramid"):
+        return _pyramid_average(image, config)
+
+
+def _pyramid_average(image: torch.Tensor,
+                     config: PyramidConfig) -> Tuple[torch.Tensor, ...]:
     lead = image.shape[:-2]
     if lead and not any(image.stride()[:-2]):
-        one = pyramid_average(image[(0,) * len(lead)], config)
+        one = _pyramid_average(image[(0,) * len(lead)], config)
         return tuple(level.expand(lead + level.shape) for level in one)
     levels = [image.to(torch.float32)]
     cur = levels[0]
@@ -81,9 +88,10 @@ def gradient(pyramid: Sequence[torch.Tensor], method: str = "sobel"):
     """Per-level gradient (PyramidOps.gradient): ``method`` "sobel" (on
     [..., h, w] levels), "three" or "prewitt" (on [h, w]).  Returns
     (dxs, dys)."""
-    fn = _GRADIENTS[method]
-    grads = [fn(level) for level in pyramid]
-    return tuple(g[0] for g in grads), tuple(g[1] for g in grads)
+    with span("gradient"):
+        fn = _GRADIENTS[method]
+        grads = [fn(level) for level in pyramid]
+        return tuple(g[0] for g in grads), tuple(g[1] for g in grads)
 
 
 def gaussian_scale_space(image: torch.Tensor, sigmas: Sequence[float]):

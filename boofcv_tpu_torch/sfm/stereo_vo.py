@@ -37,6 +37,7 @@ from boofcv_tpu_torch.feature import extract, intensity, klt
 from boofcv_tpu_torch.geo import robust, se3
 from boofcv_tpu_torch.geo.rectify import pixel_to_3d_rectified
 from boofcv_tpu_torch.ip import pyramid_ops
+from boofcv_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -278,26 +279,27 @@ def _spawn(state: StereoVoState, pyramid, grads, left, right, rectK,
     """Fill dead slots with fresh detections + stereo depth (addNewTracks):
     detect, reject candidates near live tracks, sparse SAD disparity, lift
     to 3D in the world frame through the current pose."""
-    det = _detect_candidates(left, cfg, cfg.num_tracks)
-    cand_y = det.ys.to(torch.float32)
-    cand_x = det.xs.to(torch.float32)
-    cand_ok = det.valid & ~extract.near_live(cand_x, cand_y, state.xs,
-                                             state.ys, state.alive,
-                                             cfg.detect_radius)
+    with span("spawn"):
+        det = _detect_candidates(left, cfg, cfg.num_tracks)
+        cand_y = det.ys.to(torch.float32)
+        cand_x = det.xs.to(torch.float32)
+        cand_ok = det.valid & ~extract.near_live(cand_x, cand_y, state.xs,
+                                                 state.ys, state.alive,
+                                                 cfg.detect_radius)
 
-    dcfg = disp_mod.DisparityConfig(
-        min_disparity=cfg.min_disparity, max_disparity=cfg.max_disparity,
-        radius_x=cfg.disparity_radius, radius_y=cfg.disparity_radius,
-        texture_threshold=0.1)
-    disp, dvalid = disp_mod.sparse_block_match(left, right, det.ys, det.xs,
-                                               dcfg)
-    cand_ok = cand_ok & dvalid & (disp > 0.5)
+        dcfg = disp_mod.DisparityConfig(
+            min_disparity=cfg.min_disparity, max_disparity=cfg.max_disparity,
+            radius_x=cfg.disparity_radius, radius_y=cfg.disparity_radius,
+            texture_threshold=0.1)
+        disp, dvalid = disp_mod.sparse_block_match(left, right, det.ys,
+                                                   det.xs, dcfg)
+        cand_ok = cand_ok & dvalid & (disp > 0.5)
 
-    Xc = pixel_to_3d_rectified(cand_x.to(torch.float64),
-                               cand_y.to(torch.float64),
-                               disp.to(torch.float64), rectK, baseline)
-    return _fill_slots(state, cand_x, cand_y, cand_ok, Xc, pyramid, grads,
-                       cfg)
+        Xc = pixel_to_3d_rectified(cand_x.to(torch.float64),
+                                   cand_y.to(torch.float64),
+                                   disp.to(torch.float64), rectK, baseline)
+        return _fill_slots(state, cand_x, cand_y, cand_ok, Xc, pyramid,
+                           grads, cfg)
 
 
 def _fill_slots(state: StereoVoState, cand_x, cand_y, cand_ok, Xc, pyramid,
@@ -393,23 +395,26 @@ def _make_step_fn(cfg: StereoVoConfig, rectK, baseline: float):
     track_estimate, spawn_fn = _make_step_parts(cfg, rectK, baseline)
 
     def step(state: StereoVoState, left, right):
-        new_state, pyramid, l32, r32, frac, (n_tracked, n_inl, ok) = \
-            track_estimate(state, left, right)
-        # spawn into dead slots when the pool runs low: the step's one
-        # device->host sync.  As in the reference's batched step the spawn
-        # runs for every stream when any stream needs it, and each stream
-        # that does not keeps its state as it was.
-        need = frac < cfg.respawn_below
-        if bool(torch.any(need)):
-            spawned = spawn_fn(new_state, pyramid, l32, r32)
-            new_state = _map_tensors(
-                lambda a, b: torch.where(
-                    need.reshape(need.shape + (1,) * (a.dim() - need.dim())),
-                    a, b), spawned, new_state)
-        metrics = {"tracked": n_tracked, "inliers": n_inl,
-                   "alive": torch.sum(new_state.alive, dim=-1),
-                   "pose_ok": ok}
-        return new_state, metrics
+        with span("vo.step"):
+            new_state, pyramid, l32, r32, frac, (n_tracked, n_inl, ok) = \
+                track_estimate(state, left, right)
+            # spawn into dead slots when the pool runs low: the step's one
+            # device->host sync.  As in the reference's batched step the
+            # spawn runs for every stream when any stream needs it, and each
+            # stream that does not keeps its state as it was.
+            need = frac < cfg.respawn_below
+            with span("vo.spawn_wait"):
+                spawn = bool(torch.any(need))
+            if spawn:
+                spawned = spawn_fn(new_state, pyramid, l32, r32)
+                new_state = _map_tensors(
+                    lambda a, b: torch.where(need.reshape(
+                        need.shape + (1,) * (a.dim() - need.dim())), a, b),
+                    spawned, new_state)
+            metrics = {"tracked": n_tracked, "inliers": n_inl,
+                       "alive": torch.sum(new_state.alive, dim=-1),
+                       "pose_ok": ok}
+            return new_state, metrics
 
     return step
 
@@ -455,11 +460,13 @@ def make_bootstrap(cfg: StereoVoConfig, rectK, baseline: float):
     rect_k = _rect_k_on(rectK)
 
     def boot(state: StereoVoState, left, right):
-        left = left.to(torch.float32)
-        pyramid = pyramid_ops.pyramid_average(left, pyr_cfg)
-        grads = pyramid_ops.gradient(pyramid)
-        return _spawn(state, pyramid, grads, left, right.to(torch.float32),
-                      rect_k(left.device), baseline, cfg)
+        with span("vo.bootstrap"):
+            left = left.to(torch.float32)
+            pyramid = pyramid_ops.pyramid_average(left, pyr_cfg)
+            grads = pyramid_ops.gradient(pyramid)
+            return _spawn(state, pyramid, grads, left,
+                          right.to(torch.float32), rect_k(left.device),
+                          baseline, cfg)
 
     return boot
 
@@ -479,7 +486,8 @@ def _for_device(fn, device):
         if states.xs.dim() != 2:
             raise ValueError(f"a stacked state has xs [B, N], got "
                              f"{tuple(states.xs.shape)}")
-        return fn(states, *frames)
+        with span("vo.batch"):
+            return fn(states, *frames)
 
     return on_device
 
@@ -547,24 +555,28 @@ class StereoVisualOdometry:
         return torch.as_tensor(image, dtype=torch.float32, device=self.device)
 
     def process(self, left, right) -> bool:
-        if self._first:
-            self.state = self._boot(self.state, self._tensor(left),
-                                    self._tensor(right))
-            self._first = False
-            m = {}
-        else:
-            self.state, m = self._step(self.state, self._tensor(left),
-                                       self._tensor(right))
-        # one host sync a frame: the metrics (small integers, exact in
-        # float64) and the camera->world pose together
-        R, t = se3.invert(self.state.R, self.state.t)
-        host = torch.cat([v.to(torch.float64).reshape(1) for v in m.values()]
-                         + [R.reshape(9), t]).cpu().numpy()
-        n = len(m)
-        if m:
-            self.metrics = dict(zip(m, host[:n].astype(np.int64).tolist()))
-        self._pose = (host[n:n + 9].reshape(3, 3), host[n + 9:])
-        return bool(self.metrics["pose_ok"]) if m else True
+        with span("vo.frame"):
+            with span("vo.upload"):
+                left, right = self._tensor(left), self._tensor(right)
+            if self._first:
+                self.state = self._boot(self.state, left, right)
+                self._first = False
+                m = {}
+            else:
+                self.state, m = self._step(self.state, left, right)
+            # one host sync a frame: the metrics (small integers, exact in
+            # float64) and the camera->world pose together
+            with span("vo.readback"):
+                R, t = se3.invert(self.state.R, self.state.t)
+                host = torch.cat(
+                    [v.to(torch.float64).reshape(1) for v in m.values()]
+                    + [R.reshape(9), t]).cpu().numpy()
+            n = len(m)
+            if m:
+                self.metrics = dict(zip(m, host[:n].astype(np.int64)
+                                        .tolist()))
+            self._pose = (host[n:n + 9].reshape(3, 3), host[n + 9:])
+            return bool(self.metrics["pose_ok"]) if m else True
 
     def camera_to_world(self):
         """Camera->world SE3 as numpy (R, t), as read by the last

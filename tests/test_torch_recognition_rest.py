@@ -15,6 +15,7 @@ loss gradient within 1e-4 relative of each parameter's largest entry.
 
 import os
 import sys
+import time
 
 import numpy as np
 import jax
@@ -393,11 +394,16 @@ def test_profiling_utils(tmp_path):
     ma.update(10.0)
     assert abs(ma.update(20.0) - 11.0) < 1e-9
     t = profiling.StageTimer()
+    t_start = time.perf_counter_ns()
     for _ in range(2):
         with t.stage("a", torch.zeros(3), [torch.ones(2)], {"x": 1}):
             _ = np.zeros(10)
     rep = t.report()
     assert set(rep) == {"a"} and rep["a"] >= 0.0 and t.counts["a"] == 2
+    # each stage is a span of its name
+    spans = [r for r in profiling.records() if r[4] >= t_start]
+    assert [r[0] for r in spans] == ["a", "a"]
+    assert all(r[2] is None for r in spans)
     with profiling.trace(str(tmp_path / "tr")) as prof:
         torch.ones(8) @ torch.ones(8)
     assert prof is not None
