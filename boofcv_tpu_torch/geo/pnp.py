@@ -14,6 +14,7 @@ from boofcv_tpu_torch.geo import se3
 from boofcv_tpu_torch.geo.epipolar import homography_dlt
 from boofcv_tpu_torch.geo.smalllinalg import (_eigh_sym, cubic_roots, det3,
                                               inv_spd, quartic_roots, solve33)
+from boofcv_tpu_torch.kernels import gn_pose
 from boofcv_tpu_torch.utils.profiling import span
 
 
@@ -359,6 +360,31 @@ def _gn_pose_loop(R, t, world, obs, wgt, iterations: int, damping: float,
     return R, t
 
 
+def _gn_pose_f32(R, t, world, obs, wgt, iterations: int, damping: float,
+                 step_tol: float):
+    """The float32 GN loop, then two Newton-polar steps R(3I - R^T R)/2 in
+    float64 that restore orthogonality: the plain version of
+    ``kernels/gn_pose`` (CPU tensors take it).  Returns float64 R and t."""
+    R, t = _gn_pose_loop(R, t, world, obs, wgt, iterations, damping,
+                         torch.float32, step_tol)
+    R = R.to(torch.float64)
+    eye = torch.eye(3, dtype=torch.float64, device=R.device)
+    for _ in range(2):
+        R = R @ (1.5 * eye - 0.5 * (R.transpose(-1, -2) @ R))
+    return R, t.to(torch.float64)
+
+
+def _kernel_input(x, shape):
+    """``x`` as ``kernels/gn_pose`` takes it and the plain loop reads it:
+    float32 or float64 (any other dtype cast to float32, as the loop casts
+    it), broadcast to ``shape``, contiguous."""
+    if x.dtype != torch.float32 and x.dtype != torch.float64:
+        x = x.to(torch.float32)
+    if x.shape != shape:
+        x = x.expand(shape)
+    return x.contiguous()
+
+
 def gauss_newton_pose(R, t, world, obs, weights=None, iterations: int = 10,
                       damping: float = 1e-8, polish_iterations: int = 2):
     """Weighted GN pose refinement with the analytic reprojection Jacobian,
@@ -366,19 +392,30 @@ def gauss_newton_pose(R, t, world, obs, weights=None, iterations: int = 10,
 
     The convergence iterations run in float32, then two Newton-polar steps
     R(3I - R^T R)/2 in float64 restore orthogonality, then
-    ``polish_iterations`` float64 steps (0 on the VO path)."""
+    ``polish_iterations`` float64 steps (0 on the VO path).  CPU tensors
+    take the plain version of the first two stages; CUDA tensors one launch
+    of ``kernels/gn_pose`` for both, whatever B is.  world's leading shape
+    is the problems'; the other arguments broadcast to it, in any real
+    dtype, on either route."""
     with span("refine"):
         if weights is None:
             weights = torch.ones(world.shape[:-1], dtype=torch.float64,
                                  device=world.device)
         fast_iters = iterations - polish_iterations
         if fast_iters > 0:
-            R, t = _gn_pose_loop(R, t, world, obs, weights, fast_iters,
-                                 max(damping, 1e-12), torch.float32, 1e-6)
-            R = R.to(torch.float64)
-            eye = torch.eye(3, dtype=torch.float64, device=R.device)
-            for _ in range(2):
-                R = R @ (1.5 * eye - 0.5 * (R.transpose(-1, -2) @ R))
+            if world.device.type == "cpu":
+                R, t = _gn_pose_f32(R, t, world, obs, weights, fast_iters,
+                                    max(damping, 1e-12), 1e-6)
+            else:
+                shape = world.shape
+                lead, n = shape[:-2], shape[-2:-1]
+                R, t = gn_pose.gn_pose_cuda(
+                    _kernel_input(R, lead + (3, 3)),
+                    _kernel_input(t, lead + (3,)),
+                    _kernel_input(world, shape),
+                    _kernel_input(obs, lead + n + (2,)),
+                    _kernel_input(weights, lead + n), fast_iters,
+                    max(damping, 1e-12), 1e-6)
         if polish_iterations > 0:
             R, t = _gn_pose_loop(R, t, world, obs, weights,
                                  min(polish_iterations, iterations),

@@ -11,8 +11,8 @@ Phases, each printed on its own line(s); any failure exits non-zero:
 
 1. environment: card name and power limit, torch / CUDA versions, nvcc,
    TF32 switches; fails without a CUDA device;
-2. build: both kernels (``window_gather``, ``klt_track``) from
-   ``boofcv_tpu_torch/kernels/csrc``, one ``nvcc`` each, and the native
+2. build: the three kernels (``window_gather``, ``klt_track``,
+   ``gn_pose``) from ``boofcv_tpu_torch/kernels/csrc``, one ``nvcc`` each, and the native
    host library (``boofcv_tpu_torch/native/ccl.cpp`` and ``merge.cpp``,
    one ``g++``), started together; ptxas's registers, spills and stack
    frame of every kernel instantiation;
@@ -33,8 +33,13 @@ Phases, each printed on its own line(s); any failure exits non-zero:
 4. the slice at full width: the 640x480 reference scene (41 frames) through
    ``StereoVisualOdometry`` with the default config (512 tracks, pyramid
    1/2/4/8, disparity 0-96, 256 RANSAC hypotheses), checked against the
-   ground-truth poses, with each kernel's launches counted, then the
-   sequence runner timed after a warm-up;
+   ground-truth poses, with each kernel's launches counted (``gn_pose``
+   once a step), then the sequence runner timed after a warm-up; the
+   warm-up's 40 refine inputs (what ``ransac_pnp`` hands
+   ``gauss_newton_pose``) through ``gn_pose`` and its plain route
+   (``geo/pnp._gn_pose_f32``) on the card, at the refine's step tolerance
+   and at 0: R and t within 1e-5, NaN in the same places; the last timed
+   as the path runs it and with every iteration, beside its bound;
 5. host syncs by call site in two steady-state steps, the kernels one
    steady-state step launches with the device time they take, and the
    step's stages timed one by one;
@@ -52,8 +57,10 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    stops following B), and B = 8 on 8 different sequences (the scene started at
    8 offsets).  Every stream must keep every pose inside the accuracy bars,
    stream 0 must agree with the single-stream runner (same seed, same
-   frames) within 1e-4 on ``t``, ``klt_track`` must launch once per step
-   and ``window_gather`` twice per spawn or bootstrap whatever B is, and a
+   frames) within 1e-4 on ``t``, ``klt_track`` and ``gn_pose`` must
+   launch once per step and ``window_gather`` twice per spawn or bootstrap
+   whatever B is (the B = 16 run's refine inputs held to phase 4's
+   ``gn_pose`` limits and timed), and a
    steady-state batched step must make one host sync.  Aggregate frames/s
    (median of 3 runs), the profiled step at B = 1 and B = 16, the stage
    table and peak device memory at B = 16;
@@ -71,7 +78,7 @@ Phases, each printed on its own line(s); any failure exits non-zero:
     ``index_put_`` with accumulate, the dense one-hot product);
 11. ``ba_vo:`` the VO over the first 16 frames with
     ``SlidingWindowBA(window=8)`` behind it: every state pushed, the window
-    solved from the third frame on; both hand kernels' launches counted;
+    solved from the third frame on; the hand kernels' launches counted;
 12. ``ba_scale:`` 1000 views, 100,000 points, 3 iterations: ms per
     iteration, the Cholesky's share, peak memory;
 13. the dense-image breadth path at the reference breadth benchmark's size,
@@ -101,8 +108,9 @@ Phases, each printed on its own line(s); any failure exits non-zero:
     F, E (Nister) and H over 1,000 correspondences, 30 % outliers, 512
     hypotheses (at least 95 % of the true inliers kept, at most 1 % of the
     outliers); ``breadth_cpu_vs_card:`` each module family on the card
-    against the same call on the CPU at the test size.  These phases launch
-    neither hand kernel: the reference's modules reach no TPU kernel;
+    against the same call on the CPU at the test size.  These phases
+    launch neither ``window_gather`` nor ``klt_track`` (the reference's
+    modules reach no TPU kernel); the PnP solvers' refine is ``gn_pose``;
 14. ``sparse_ssd:`` the sparse matcher scoring SSD at the main path's shape
     (512 points, 96 disparities): ``window_gather`` launches twice, its
     costs equal the CPU's (the plain gather) to 1e-5;
@@ -121,12 +129,15 @@ Phases, each printed on its own line(s); any failure exits non-zero:
     two-pass and DDA trackers on a texture moving (1, 2) px a frame (median
     motion error at most 0.1 px, DDA 0.5 px).  Each prints frames/s,
     kernels a frame, busy ms, idle share, syncs a frame, peak memory and
-    its bar; every KLT path must launch ``klt_track`` and the dual-track
-    spawn ``window_gather``, and each KLT path's ``track_pyramid`` calls of
-    one frame go through the kernel and the plain version on the card, held
-    to phase 3's limits at the path's own levels, tracks, image, radius and
-    iteration cap;
-16. multi-view geometry and SfM (none of it reaches a hand kernel), each
+    its bar; every KLT path must launch ``klt_track``, the dual-track
+    spawn ``window_gather`` and the depth, dual and quad VO ``gn_pose``;
+    each KLT path's ``track_pyramid`` calls of one frame go through the
+    kernel and the plain version on the card, held to phase 3's limits at
+    the path's own levels, tracks, image, radius and iteration cap, and
+    each PnP path's refine calls of that frame to phase 4's ``gn_pose``
+    limits;
+16. multi-view geometry and SfM (none of it reaches a hand kernel but
+    ``sfm_incremental:``'s PnP refine, ``gn_pose``), each
     phase with ms per call (CUDA events around the whole call after a
     warm-up), kernels, device busy ms and idle share of one profiled call,
     host syncs by call site, peak memory and its bar: ``pose_graph:``
@@ -146,8 +157,8 @@ Phases, each printed on its own line(s); any failure exits non-zero:
     ``kernel:`` lines also hold ``F.grid_sample`` (nearest, border,
     align_corners) against the plain gather at each of its shapes and time
     it as the library call;
-17. recognition (none of it reaches a hand kernel), each call measured as
-    in 16: ``binary:`` a 1280x720 frame of shapes and a chessboard (Otsu,
+17. recognition (none of it reaches a hand kernel but the fiducials'
+    pose refine, ``gn_pose``), each call measured as in 16: ``binary:`` a 1280x720 frame of shapes and a chessboard (Otsu,
     threshold, point noise, ``label_blobs`` on the card: equal to the
     native CCL in both numberings, its sweeps and syncs; native
     ``contours_with_holes`` equal to the Python tracer); ``fiducial:`` a
@@ -203,7 +214,7 @@ Phases, each printed on its own line(s); any failure exits non-zero:
     run on the same decoded frames and within the VO bars, with and
     without ``--calib``; frames/s end to end (PNG decode included), the
     step's share, host syncs by call site, a profiled frame's kernels and
-    idle share, both kernels' launches;
+    idle share, the hand kernels' launches (``gn_pose`` once a step);
 21. ``examples:`` every example of the port (64) once on the card
     in-process: each returns 0 with ``OK`` last; its ms and launches;
 22. ``cli:`` the eight other commands on the data ``tests/test_cli.py``
@@ -223,7 +234,9 @@ Phases, each printed on its own line(s); any failure exits non-zero:
     inliers above 0.7 of each pair's common points, relative rotations
     within 1e-2); ``reconstruct_uncalibrated(mesh=)`` (the pairwise graph
     equal to the unsharded call's, ``sfm_uncalibrated:``'s bars); neither
-    hand kernel launched; then a CPU leg, printed as such: the BA at test
+    ``window_gather`` nor ``klt_track`` launched, ``gn_pose`` by the
+    sharded RANSAC's refine (its inputs held to phase 4's limits); then a
+    CPU leg, printed as such: the BA at test
     size on four gloo processes on the host's CPU, 1-D and 2-D meshes and
     PCG, against the one-process ``ba.optimize``.
 
@@ -232,10 +245,12 @@ The line before the last is the kernels' JSON record; the last line is
 
     python3 chip_smoke.py --sweep [--baseline [TAG=]DIR ...] [--out DIR]
 
-times the two hand kernels alone, shape by shape, and nothing else:
+times the hand kernels alone, shape by shape, and nothing else:
 device ms of one launch (the profiler's median kernel time, ``device_ms``),
 ms a call over 200 back-to-back calls through the wrapper (CUDA events:
-the host's launch rate) and the bound (``bound``), for ``window_gather`` at
+the host's launch rate) and the bound (``bound``), for ``gn_pose`` at [600]
+and [16, 600] pose problems, 50 iterations, beside the plain route's times
+(``_sweep_gn_pose``; this tree only), for ``window_gather`` at
 [512] windows of 7x102, 7x7 and 24x16, [16, 512] 7x102 on 16 frames,
 [64, 512] and [256, 512] on one shared frame (each bit-equal to the plain
 version; an empty launch of each grid beside it), and ``klt_track`` at
@@ -291,6 +306,10 @@ KERNELS = {
         "source": "boofcv_tpu_torch/kernels/csrc/klt_track.cu",
         "replaces": "boofcv_tpu/kernels/window_gather.py:95 + "
                     "boofcv_tpu/feature/klt.py:107"},
+    "gn_pose": {
+        "source": "boofcv_tpu_torch/kernels/csrc/gn_pose.cu",
+        "replaces": "no TPU kernel: XLA fuses the lax.while_loop of "
+                    "boofcv_tpu/geo/pnp.py:575"},
 }
 # published peaks of one H100 SXM: device memory rate, f32 outside the
 # tensor cores
@@ -487,20 +506,22 @@ def ptxas_summary(text: str) -> list:
 
 
 def phase_build():
-    """Both kernels, one nvcc each, and the native host library (g++),
-    started together."""
+    """The three kernels, one nvcc each, and the native host library
+    (g++), started together."""
     from boofcv_tpu_torch import native
-    from boofcv_tpu_torch.kernels import _nvcc, klt_track, window_gather
+    from boofcv_tpu_torch.kernels import (_nvcc, gn_pose, klt_track,
+                                          window_gather)
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        futures = [pool.submit(window_gather._kernel_lib),
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        futures = [pool.submit(_timed_native_build),
+                   pool.submit(window_gather._kernel_lib),
                    pool.submit(klt_track._kernel_lib),
-                   pool.submit(_timed_native_build)]
+                   pool.submit(gn_pose._kernel_lib)]
         for f in futures:
             f.result()
     wall = time.perf_counter() - t0
     print(f"build: native host library (g++ {' '.join(native.FLAGS)}) "
-          f"built and loaded in {futures[2].result():.3f}s")
+          f"built and loaded in {futures[0].result():.3f}s")
     for name in KERNELS:
         rec = _nvcc.build_record(name)
         print(f"build: {name} built={rec['built']} "
@@ -512,7 +533,7 @@ def phase_build():
             print(f"build: {name} ptxas: {fn} registers={regs} "
                   f"spill_stores={stores} spill_loads={loads} "
                   f"stack_frame={stack}")
-    print(f"build: both kernels and the native library built and loaded in "
+    print(f"build: the kernels and the native library built and loaded in "
           f"{wall:.3f}s")
 
 
@@ -871,6 +892,126 @@ def _rot_err_deg(Rest_c2w, Rgt_w2c) -> float:
                                               -1, 1))))
 
 
+def _kernel_modules() -> dict:
+    """The hand kernels' wrapper modules by kernel name."""
+    from boofcv_tpu_torch.kernels import gn_pose, klt_track, window_gather
+    return {"window_gather": window_gather, "klt_track": klt_track,
+            "gn_pose": gn_pose}
+
+
+def _reset_launches() -> None:
+    """Zero every hand kernel's launch counter."""
+    for mod in _kernel_modules().values():
+        mod.reset_launch_count()
+
+
+def _launches() -> dict:
+    """Every hand kernel's launches since :func:`_reset_launches`."""
+    return {name: mod.launch_count()
+            for name, mod in _kernel_modules().items()}
+
+
+def _capture_refine(fn) -> list:
+    """Run ``fn()`` with ``pnp.gauss_newton_pose`` wrapped to keep the
+    arguments of each call (as ``robust.ransac_pnp`` passes them): [(R, t,
+    world, obs, weights, iterations, damping, polish_iterations), ...]."""
+    import inspect
+    from boofcv_tpu_torch.geo import pnp
+    calls, inner = [], pnp.gauss_newton_pose
+    sig = inspect.signature(inner)
+
+    def recording(*a, **k):
+        b = sig.bind(*a, **k)
+        b.apply_defaults()
+        calls.append(tuple(b.arguments.values()))
+        return inner(*a, **k)
+    pnp.gauss_newton_pose = recording
+    try:
+        fn()
+    finally:
+        pnp.gauss_newton_pose = inner
+    return calls
+
+
+def _gn_bound(args, iterations: int) -> dict:
+    """Bound of one ``gn_pose`` launch that runs every iteration: every
+    input once, R and t out in float64; about 152 float32 operations a
+    point and iteration (projection, residual, the two Jacobian rows and
+    the 27 weighted sums of J^T W J and J^T W r)."""
+    world = args[2]
+    b = world[..., 0, 0].numel()
+    return bound(sum(x.numel() * x.element_size() for x in args) + 96 * b,
+                 152 * world[..., 0].numel() * iterations)
+
+
+def _gn_check(tag: str, calls) -> tuple:
+    """``gn_pose`` against the plain route (``geo/pnp._gn_pose_f32``) on the
+    inputs a path gave the refine (``calls``, from :func:`_capture_refine`),
+    each with the path's iterations and damping, at the refine's step
+    tolerance (1e-6) and at 0: R and t within 1e-5 (float32's resolution at
+    the loop's scale: the kernel sums the points in another order), NaN
+    where the plain route gives NaN.  Returns (largest gap, calls checked,
+    (the last call's tensors, iterations, damping))."""
+    from boofcv_tpu_torch.geo import pnp
+    from boofcv_tpu_torch.kernels import gn_pose as gp
+    worst, checked, last = 0.0, 0, None
+    for j, (R, t, world, obs, wgt, iters, damping, polish) in \
+            enumerate(calls):
+        fast = iters - polish
+        if fast <= 0:
+            continue
+        args = [x.contiguous() for x in (R, t, world, obs, wgt)]
+        damping = max(damping, 1e-12)
+        last = (args, fast, damping)
+        for tol in (1e-6, 0.0):
+            got = gp.gn_pose_cuda(*args, fast, damping, tol)
+            want = pnp._gn_pose_f32(*args, fast, damping, tol)
+            for g, w in zip(got, want):
+                check(torch.equal(g.isnan(), w.isnan()),
+                      f"gn_pose {tag} call {j} step_tol={tol}: NaN where "
+                      f"the plain route has none, or none where it has")
+                gap = float((g - w).nan_to_num().abs().max())
+                check(gap <= 1e-5, f"gn_pose {tag} call {j} step_tol={tol}: "
+                                   f"{gap:.3e} from the plain route")
+                worst = max(worst, gap)
+        checked += 1
+    check(checked > 0, f"gn_pose {tag}: no refine call to check")
+    return worst, checked, last
+
+
+def phase_gn_kernel(dev, tag: str, calls) -> dict:
+    """:func:`_gn_check` on the inputs the VO path's ``ransac_pnp`` gave the
+    refine; then its last call timed as the path runs it and with every
+    iteration run (step tolerance 0), beside its bound."""
+    from boofcv_tpu_torch.geo import pnp
+    from boofcv_tpu_torch.kernels import gn_pose as gp
+    worst, checked, (args, fast, damping) = _gn_check(tag, calls)
+    lead = tuple(args[2].shape[:-1])
+    what = f"gn_pose {tag} [{', '.join(map(str, lead))}] iterations={fast}"
+    print(f"kernel: {what}: {checked} refine calls of the path against the "
+          f"plain route, step_tol 1e-6 and 0: max_abs_err={worst:.3e} "
+          f"(limit 1e-5)")
+    t = _times(lambda: gp.gn_pose_cuda(*args, fast, damping, 1e-6),
+               lambda: pnp._gn_pose_f32(*args, fast, damping, 1e-6),
+               "gn_pose_kernel", 5)
+    out = _print_times(f"{what} step_tol=1e-6 (as the path runs it)",
+                       _gn_bound(args, fast), t)
+    # the bound counts every iteration; with the path's tolerance a problem
+    # may leave the loop early, so the share is read with tolerance 0
+    out.pop("bound_ms")
+    out.pop("bound_by")
+    full = _times(lambda: gp.gn_pose_cuda(*args, fast, damping, 0.0),
+                  lambda: pnp._gn_pose_f32(*args, fast, damping, 0.0),
+                  "gn_pose_kernel", 5)
+    out["every_iteration"] = _print_times(f"{what} step_tol=0 (every "
+                                          f"iteration)",
+                                          _gn_bound(args, fast), full)
+    out["every_iteration"]["share"] = (out["every_iteration"]["bound_ms"]
+                                       / full["device_ms"])
+    return {"max_abs_err": worst, "calls_checked": checked,
+            "shape": list(lead), "iterations": fast, **out}
+
+
 def _stage_timer():
     """(ms by name, timed): ``timed(name, fn)`` wraps ``fn`` so that each
     call, with a synchronize before and after, adds its host wall ms to
@@ -928,16 +1069,13 @@ def _stage_table(tag, cfg, state, lefts, rights) -> None:
 
 
 def phase_slice(dev, poses, frames) -> dict:
-    from boofcv_tpu_torch.kernels import klt_track as kt
-    from boofcv_tpu_torch.kernels import window_gather as wg
     from boofcv_tpu_torch.sfm import stereo_vo
     cfg = stereo_vo.StereoVoConfig()
     vo = stereo_vo.StereoVisualOdometry(cfg, K, BASELINE, H, W, seed=0,
                                         device=dev)
 
     # the main path, counted: bootstrap + 40 steps through process()
-    wg.reset_launch_count()
-    kt.reset_launch_count()
+    _reset_launches()
     oks, centres, rots, frame_s = [], [], [], []
     spawns, next_uid = 0, 0
     for left, right in frames:
@@ -954,8 +1092,7 @@ def phase_slice(dev, poses, frames) -> dict:
             spawns += 1          # a spawn that filled at least one slot
         next_uid = uid
     torch.cuda.synchronize()
-    launches = {"window_gather": wg.launch_count(),
-                "klt_track": kt.launch_count()}
+    launches = _launches()
     gt = np.stack([-R.T @ t for R, t in poses])
     ate = float(np.mean(np.linalg.norm(np.stack(centres) - gt, axis=1)))
     total = float(np.linalg.norm(gt[-1]))
@@ -967,8 +1104,8 @@ def phase_slice(dev, poses, frames) -> dict:
           f" alive_last={vo.metrics['alive']}")
     print(f"slice: launches in bootstrap+{N_FRAMES - 1} steps: klt_track="
           f"{launches['klt_track']} window_gather="
-          f"{launches['window_gather']} (spawns seen after the bootstrap: "
-          f"{spawns})")
+          f"{launches['window_gather']} gn_pose={launches['gn_pose']} "
+          f"(spawns seen after the bootstrap: {spawns})")
     print(f"slice: process() per-frame wall ms (step + pose readback): "
           f"median={1e3 * np.median(frame_s[1:]):.3f} "
           f"p90={1e3 * np.percentile(frame_s[1:], 90):.3f} "
@@ -976,6 +1113,9 @@ def phase_slice(dev, poses, frames) -> dict:
     check(launches["klt_track"] == N_FRAMES - 1,
           f"klt_track launched {launches['klt_track']} times in "
           f"{N_FRAMES - 1} track_pyramid calls")
+    check(launches["gn_pose"] == N_FRAMES - 1,
+          f"gn_pose launched {launches['gn_pose']} times in {N_FRAMES - 1} "
+          f"steps (one refine a step)")
     check(launches["window_gather"] >= 2 + 2 * spawns
           and launches["window_gather"] % 2 == 0,
           f"window_gather launched {launches['window_gather']} times: "
@@ -986,9 +1126,13 @@ def phase_slice(dev, poses, frames) -> dict:
 
     # throughput: the sequence runner from the bootstrap state
     run = stereo_vo.make_sequence_runner(cfg, K, BASELINE)
+    outs = []
     lefts = torch.stack([torch.from_numpy(l) for l, _ in frames[1:]]).to(dev)
     rights = torch.stack([torch.from_numpy(r) for _, r in frames[1:]]).to(dev)
-    s_end, ((Rs, ts), ms) = run(boot_state, lefts, rights)   # warm-up
+    # warm-up, with the refine's inputs kept for phase_gn_kernel
+    refine_calls = _capture_refine(lambda: outs.append(run(
+        boot_state, lefts, rights)))
+    s_end, ((Rs, ts), ms) = outs.pop()
     torch.cuda.synchronize()
     same = bool(torch.equal(s_end.R, vo.state.R))
     fps = []
@@ -1017,7 +1161,8 @@ def phase_slice(dev, poses, frames) -> dict:
     _profile_step("B=1 (single-stream step)", step, state, lefts[k + 2:k + 9],
                   rights[k + 2:k + 9])
     _stage_table("B=1", cfg, state, lefts[k + 2:], rights[k + 2:])
-    return {"launches": launches, "ts": ts.cpu().numpy()}
+    return {"launches": launches, "ts": ts.cpu().numpy(),
+            "refine_calls": refine_calls}
 
 
 def _count_sync_warnings(fn):
@@ -1343,9 +1488,10 @@ def _expected_gathers(metrics, cfg) -> int:
     return 2 + 2 * int(low.reshape(low.shape[0], -1).any(dim=1).sum())
 
 
-def phase_batched(dev, poses, frames, single) -> dict:
-    """The B-stream path: batched bootstrap + batched sequence runner."""
-    from boofcv_tpu_torch.kernels import klt_track as kt
+def phase_batched(dev, poses, frames, single) -> tuple:
+    """The B-stream path: batched bootstrap + batched sequence runner.
+    Returns (the launches by path, the refine's inputs of the B = 16
+    counted run)."""
     from boofcv_tpu_torch.kernels import window_gather as wg
     from boofcv_tpu_torch.sfm import stereo_vo
     cfg = stereo_vo.StereoVoConfig()
@@ -1353,18 +1499,20 @@ def phase_batched(dev, poses, frames, single) -> dict:
     L = torch.stack([torch.from_numpy(l) for l, _ in frames]).to(dev)
     R = torch.stack([torch.from_numpy(r) for _, r in frames]).to(dev)
     boot = stereo_vo.make_batched_bootstrap(cfg, K, BASELINE)
-    launches = {}
+    launches, refine_calls = {}, []
 
     def drive(tag, b, run, boot_frames, lefts, rights, stream_poses):
         """One counted run (also the warm-up), its checks, then 3 timed."""
-        wg.reset_launch_count()
-        kt.reset_launch_count()
+        _reset_launches()
         s0 = boot(stereo_vo.init_batched_state(cfg, b, H, W, seed=0),
                   *boot_frames)
-        s_end, ((Rs, ts), ms) = run(s0, lefts, rights)
+        outs = []
+        calls = _capture_refine(lambda: outs.append(run(s0, lefts, rights)))
+        s_end, ((Rs, ts), ms) = outs.pop()
         torch.cuda.synchronize()
-        launches[tag] = {"klt_track": kt.launch_count(),
-                         "window_gather": wg.launch_count()}
+        launches[tag] = _launches()
+        if b == 16:
+            refine_calls[:] = calls
         check(Rs.shape == (T, b, 3, 3) and ts.shape == (T, b, 3),
               f"{tag}: poses shaped {tuple(Rs.shape)}, {tuple(ts.shape)}")
         check(bool(torch.isfinite(Rs).all() and torch.isfinite(ts).all()),
@@ -1380,8 +1528,9 @@ def phase_batched(dev, poses, frames, single) -> dict:
               f"{max(a[2] for a in acc):.6f}; alive_last="
               f"{ms['alive'][-1].tolist()}; launches klt_track="
               f"{launches[tag]['klt_track']} window_gather="
-              f"{launches[tag]['window_gather']} (expected {T} and "
-              f"{want_wg})")
+              f"{launches[tag]['window_gather']} gn_pose="
+              f"{launches[tag]['gn_pose']} (expected {T}, {want_wg} and "
+              f"{T})")
         check(all(n == T for n in n_ok), f"{tag}: pose_ok {n_ok} of {T}")
         for i, (ate, total, rot) in enumerate(acc):
             check(ate < 0.15 * total,
@@ -1394,6 +1543,9 @@ def phase_batched(dev, poses, frames, single) -> dict:
         check(launches[tag]["window_gather"] == want_wg,
               f"{tag}: window_gather launched "
               f"{launches[tag]['window_gather']} times, expected {want_wg}")
+        check(launches[tag]["gn_pose"] == T,
+              f"{tag}: gn_pose launched {launches[tag]['gn_pose']} times "
+              f"in {T} batched steps")
         fps = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -1485,7 +1637,7 @@ def phase_batched(dev, poses, frames, single) -> dict:
     check(int(hit.next_uid[1]) > int(s_end.next_uid[1])
           and int(hit.alive[1].sum()) > 200, "stream 1 did not refill")
     check(same and dt <= 1e-6, "a spawn in stream 1 changed another stream")
-    return launches
+    return launches, refine_calls
 
 
 def phase_720p(dev) -> None:
@@ -1930,16 +2082,13 @@ def phase_ba_vo(dev, poses, frames) -> dict:
     """The VO over the first 16 frames of the scene with the sliding window
     behind it: every state pushed, the window solved from the third frame
     on.  Returns the hand kernels' launches on this path."""
-    from boofcv_tpu_torch.kernels import klt_track as kt
-    from boofcv_tpu_torch.kernels import window_gather as wg
     from boofcv_tpu_torch.sfm import stereo_vo, window_ba
     n = 16
     cfg = stereo_vo.StereoVoConfig()
     vo = stereo_vo.StereoVisualOdometry(cfg, K, BASELINE, H, W, seed=0,
                                         device=dev)
     wba = window_ba.SlidingWindowBA(window=8, device=dev)
-    wg.reset_launch_count()
-    kt.reset_launch_count()
+    _reset_launches()
     push_ms, opt_ms, tracks, n_obs, push_syncs, opt_syncs = ([] for _ in
                                                              range(6))
     centre = lambda R, t: -np.asarray(R).T @ np.asarray(t)
@@ -1969,8 +2118,7 @@ def phase_ba_vo(dev, poses, frames) -> dict:
         tracks.append(info["tracks"])
         n_obs.append(info["observations"])
     torch.cuda.synchronize()
-    launches = {"klt_track": kt.launch_count(),
-                "window_gather": wg.launch_count()}
+    launches = _launches()
     c_gt = centre(*poses[n - 1])
     err_vo = float(np.linalg.norm(vo.camera_to_world()[1] - c_gt))
     err_ba = float(np.linalg.norm(centre(*refined[-1]) - c_gt))
@@ -1986,10 +2134,11 @@ def phase_ba_vo(dev, poses, frames) -> dict:
           f"camera-centre error: raw VO {err_vo:.6f}, refined window "
           f"{err_ba:.6f} (motion {float(np.linalg.norm(c_gt)):.6f}); launches "
           f"klt_track={launches['klt_track']} window_gather="
-          f"{launches['window_gather']}")
-    check(launches["klt_track"] == n - 1,
-          f"ba_vo: klt_track launched {launches['klt_track']} times in "
-          f"{n - 1} steps")
+          f"{launches['window_gather']} gn_pose={launches['gn_pose']}")
+    for name in ("klt_track", "gn_pose"):
+        check(launches[name] == n - 1, f"ba_vo: {name} launched "
+                                       f"{launches[name]} times in {n - 1} "
+                                       f"steps")
     check(launches["window_gather"] >= 2,
           "ba_vo: window_gather was not launched by the bootstrap")
     return launches
@@ -3327,6 +3476,7 @@ def sliding_frames(h, w, n_frames, dy, dx, seed, margin=20):
 
 KLT_FAMILY_ERR = {}   # family path -> its klt_track check's position gap
 KLT_FAMILY_CALLS = {}  # family path -> one frame's track_pyramid inputs
+GN_FAMILY_ERR = {}    # family path -> its gn_pose check's largest R/t gap
 
 
 def _capture_klt(fn) -> list:
@@ -3390,29 +3540,26 @@ def _family(tag: str, what: str, dev, process, accuracy, kernels=(),
     counted from 0 and the peak memory; then ``accuracy()`` -> (text, ok);
     frame n-2 with sync warnings on (host syncs by call site), its
     ``track_pyramid`` inputs kept for :func:`_klt_family_check` where the
-    path runs ``klt_track``; frame n-1 under the profiler (kernels, device
+    path runs ``klt_track`` and its refine's inputs for :func:`_gn_check`
+    where it runs ``gn_pose``; frame n-1 under the profiler (kernels, device
     busy ms, and the idle share of the median frame).  Fails if the bar is
-    missed, a kernel in ``kernels`` did not launch or the kernel check
+    missed, a kernel in ``kernels`` did not launch or a kernel check
     fails; returns those kernels' launches."""
-    from boofcv_tpu_torch.kernels import klt_track as kt
-    from boofcv_tpu_torch.kernels import window_gather as wg
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    wg.reset_launch_count()
-    kt.reset_launch_count()
+    _reset_launches()
     wall = []
     for i in range(n_frames - 2):
         t0 = time.perf_counter()
         process(i)
         torch.cuda.synchronize()
         wall.append(1e3 * (time.perf_counter() - t0))
-    launches = {"klt_track": kt.launch_count(),
-                "window_gather": wg.launch_count()}
+    launches = _launches()
     peak = torch.cuda.max_memory_allocated(dev) / 2**20
     text, ok = accuracy()
-    calls = []
-    _, syncs = _count_sync_warnings(
-        lambda: calls.extend(_capture_klt(lambda: process(n_frames - 2))))
+    calls, refines = [], []
+    _, syncs = _count_sync_warnings(lambda: refines.extend(_capture_refine(
+        lambda: calls.extend(_capture_klt(lambda: process(n_frames - 2))))))
     torch.cuda.synchronize()
     events, _ = _trace(lambda: process(n_frames - 1))
     timed = wall[3:]
@@ -3423,7 +3570,7 @@ def _family(tag: str, what: str, dev, process, accuracy, kernels=(),
           f"{med:.3f} p90={np.percentile(timed, 90):.3f} first={wall[0]:.3f})"
           f"; launches in {n_frames - 2} frames: klt_track="
           f"{launches['klt_track']} window_gather={launches['window_gather']}"
-          f"; one profiled frame: {len(events)} kernels, device busy "
+          f" gn_pose={launches['gn_pose']}; one profiled frame: {len(events)} kernels, device busy "
           f"{busy:.3f} ms, idle share {1 - busy / med:.4f} of the median "
           f"frame; host syncs a frame={sum(syncs.values())} "
           f"{dict(sorted(syncs.items()))}; peak device memory MiB="
@@ -3435,6 +3582,12 @@ def _family(tag: str, what: str, dev, process, accuracy, kernels=(),
         path = f"{tag} {what.split()[0]}"
         KLT_FAMILY_ERR[path] = _klt_family_check(path, calls)
         KLT_FAMILY_CALLS[path] = calls
+    if "gn_pose" in kernels:
+        path = f"{tag} {what.split()[0]}"
+        GN_FAMILY_ERR[path], n, _ = _gn_check(path, refines)
+        print(f"kernel: gn_pose {path}: {n} refine calls of frame "
+              f"{n_frames - 2} against the plain route, step_tol 1e-6 and 0:"
+              f" max_abs_err={GN_FAMILY_ERR[path]:.3e} (limit 1e-5)")
     return {name: launches[name] for name in kernels}
 
 
@@ -3488,18 +3641,19 @@ def phase_vo_families(dev, poses, frames) -> dict:
         "vo_depth", f"DepthVisualOdometry {W}x{H}, {cfg.num_tracks} tracks, "
         f"pyramid {cfg.pyramid_scales}", dev,
         depth_vo.DepthVisualOdometry(cfg, K, H, W, device=dev), rgbd, poses,
-        0.15, ("klt_track",))
+        0.15, ("klt_track", "gn_pose"))
     dcfg = dual_track_vo.DualTrackVoConfig()
     launches["vo_dual"] = _vo_family(
         "vo_dual", f"DualTrackVisualOdometry {W}x{H}, {dcfg.num_tracks} "
         f"tracks, pyramid {dcfg.pyramid_scales}, D={dcfg.max_disparity}", dev,
         dual_track_vo.DualTrackVisualOdometry(dcfg, K, BASELINE, device=dev),
-        pairs, poses, 0.15, ("klt_track", "window_gather"))
+        pairs, poses, 0.15, ("klt_track", "window_gather", "gn_pose"))
     qcfg = quad_vo.QuadVoConfig()
-    _vo_family("vo_quad", f"QuadVisualOdometry {W}x{H}, "
-               f"{qcfg.num_features} SURF features an image (no hand kernel)",
-               dev, quad_vo.QuadVisualOdometry(qcfg, K, BASELINE, device=dev),
-               pairs, poses, 0.25, ())
+    launches["vo_quad"] = _vo_family(
+        "vo_quad", f"QuadVisualOdometry {W}x{H}, {qcfg.num_features} SURF "
+        f"features an image", dev,
+        quad_vo.QuadVisualOdometry(qcfg, K, BASELINE, device=dev), pairs,
+        poses, 0.25, ("gn_pose",))
     _vo_family("vo_direct", f"DirectDepthVisualOdometry {W}x{H}, scales "
                "(1, 2, 4), 10 Gauss-Newton iterations a level (no hand "
                "kernel)", dev, direct_vo.DirectDepthVisualOdometry(
@@ -4504,10 +4658,12 @@ def phase_fiducial(dev) -> None:
             d = np.linalg.norm(c[:, None] - truth[None], axis=-1)
             errs += list(d.min(1))
     extra = len(dets) + len(dets_img) - len(found)
+    _reset_launches()
     _multiview("fiducial", "estimate_pose of one marker (DLT + 15 GN "
                "iterations)", lambda: fid.estimate_pose(
                    dets[0]["corners"], FID_SIDE, REC_K, device=dev), dev,
                reps=5)
+    n_gn = _launches()["gn_pose"]
     rots = sorted({d["rotation"] for d in dets})
     med_err = float(np.median(errs)) if errs else np.inf
     max_err = float(np.max(errs)) if errs else np.inf
@@ -4522,7 +4678,10 @@ def phase_fiducial(dev) -> None:
           f"{rms:.4f} px (bar 1), max "
           f"{max(reproj, default=np.inf):.4f} px; rotation against the true "
           f"pose max {max(rot_err, default=np.inf):.3f} deg; detections on "
-          f"the card = on the CPU (1e-4 px)={same_cpu}")
+          f"the card = on the CPU (1e-4 px)={same_cpu}; gn_pose launches "
+          f"in the timed estimate_pose calls {n_gn}")
+    check(n_gn >= 1, "fiducial: estimate_pose's refine did not launch "
+                     "gn_pose")
     check(len(found) == 10 and same_cpu and med_err < 1.0
           and max_err < FID_MAX_CORNER_PX and rms < 1.0,
           "fiducial: a marker missed, or corners or pose off")
@@ -6056,15 +6215,20 @@ def phase_ip_more(dev) -> None:
                        1e-8, Rp),
     }
     for name, (fn, tol, R_true) in solvers.items():
+        _reset_launches()
         (R, t), ms = _multiview("ip_more", f"{name}, {N_PNP} points",
                                 lambda fn=fn: fn(dev), dev, reps=5)
+        n_gn = _launches()["gn_pose"]
         Rc, tc = fn("cpu")
         gap = max(_gap(R, Rc), _gap(t, tc))
         err = float(np.abs(_host_np(R) - R_true).max())
         lines.append(f"{name} card against the CPU {gap:.2e} (bar {tol}), "
-                     f"rotation against the truth {err:.2e} (bar 1e-2)")
+                     f"rotation against the truth {err:.2e} (bar 1e-2), "
+                     f"gn_pose launches {n_gn}")
         check(gap <= tol and err < 1e-2, f"ip_more: {name}: gap {gap}, "
               f"rotation error {err}")
+        check(n_gn >= 1 or name not in ("epnp", "pnp_planar"),
+              f"ip_more: {name}'s refine did not launch gn_pose")
     print("ip_more: accuracy: " + "; ".join(lines))
 
 
@@ -6072,8 +6236,10 @@ def phase_ip_more(dev) -> None:
 
 # the examples whose path reaches a hand kernel, with the kernels it runs
 EXAMPLE_KERNELS = {
-    "visual_odometry_stereo": ("klt_track", "window_gather"),
-    "visual_odometry_depth": ("klt_track",),
+    "visual_odometry_stereo": ("klt_track", "window_gather", "gn_pose"),
+    "visual_odometry_depth": ("klt_track", "gn_pose"),
+    "pnp": ("gn_pose",),
+    "pose_of_calibration_target": ("gn_pose",),
     "visual_odometry_mono_plane": ("klt_track",),
     "point_feature_tracker": ("klt_track",),
     "video_stabilization": ("klt_track",),
@@ -6121,7 +6287,7 @@ def phase_cli_vo(dev, poses, frames) -> dict:
     final rotation error below 2 degrees); a run with ``--calib`` (a stereo
     YAML of the scene's own calibration) must meet them too.  Prints
     frames/s end to end (PNG decode included), the share of it in
-    ``process``, both kernels' launches, host syncs by call site (one run
+    ``process``, the hand kernels' launches, host syncs by call site (one run
     with sync warnings on) and the kernels, device busy ms and idle share
     of one profiled frame (the 21st; another run).  Returns the launches
     of the counted run."""
@@ -6129,8 +6295,6 @@ def phase_cli_vo(dev, poses, frames) -> dict:
     from boofcv_tpu_torch.cli import stereo_vo_demo
     from boofcv_tpu_torch.io import calibration_io as cio
     from boofcv_tpu_torch.io import image_io
-    from boofcv_tpu_torch.kernels import klt_track as kt
-    from boofcv_tpu_torch.kernels import window_gather as wg
     from boofcv_tpu_torch.sfm import stereo_vo
     svo = stereo_vo.StereoVisualOdometry
     process = svo.process
@@ -6156,16 +6320,14 @@ def phase_cli_vo(dev, poses, frames) -> dict:
             ok = process(self, left, right)
             step_s.append(time.perf_counter() - t1)
             return ok
-        kt.reset_launch_count()
-        wg.reset_launch_count()
+        _reset_launches()
         svo.process = timed
         try:
             rc, log, wall = _run_command(stereo_vo_demo.main,
                                          plain + ["--output", out["timed"]])
         finally:
             svo.process = process
-        launches = {"klt_track": kt.launch_count(),
-                    "window_gather": wg.launch_count()}
+        launches = _launches()
         check(rc == 0, f"cli_vo: stereo_vo_demo returned {rc}")
         oks = [line.split("ok=")[1].startswith("True")
                for line in log.splitlines() if line.startswith("frame ")]
@@ -6234,7 +6396,7 @@ def phase_cli_vo(dev, poses, frames) -> dict:
           f"{1e3 * sum(step_s):.1f} ms of it (share "
           f"{sum(step_s) / wall:.4f}), median step {step_ms:.3f} ms; "
           f"launches klt_track={launches['klt_track']} window_gather="
-          f"{launches['window_gather']}")
+          f"{launches['window_gather']} gn_pose={launches['gn_pose']}")
     print(f"cli_vo: trajectory against a direct StereoVisualOdometry run on "
           f"the same decoded frames: max |gap| {gap:.3e} (bar 1e-6); "
           f"accuracy: {text}")
@@ -6254,37 +6416,36 @@ def phase_cli_vo(dev, poses, frames) -> dict:
     check(ok_c, f"cli_vo: --calib accuracy bar missed: {text_c}")
     check(klt_ms > 0, "cli_vo: the profiled frame did not run "
                       "klt_track_kernel")
+    check(launches["gn_pose"] == N_FRAMES - 1,
+          f"cli_vo: gn_pose launched {launches['gn_pose']} times in "
+          f"{N_FRAMES - 1} steps")
     return launches
 
 
 def phase_examples(dev) -> dict:
     """``examples:`` each of the port's 64 examples once on the card,
     in-process (``main(["--device", "cuda"])``): each must return 0 with
-    ``OK`` as its last line.  One line an example: host wall ms and both
-    kernels' launches.  Returns the launches of each example that reaches
+    ``OK`` as its last line.  One line an example: host wall ms and the
+    hand kernels' launches.  Returns the launches of each example that reaches
     a hand kernel (``EXAMPLE_KERNELS``, and any other that launched one),
     each naming the kernels it runs."""
     import importlib
     import pkgutil
     import boofcv_tpu_torch.examples as examples
-    from boofcv_tpu_torch.kernels import klt_track as kt
-    from boofcv_tpu_torch.kernels import window_gather as wg
     names = sorted(m.name for m in pkgutil.iter_modules(examples.__path__))
     check(len(names) == N_EXAMPLES, f"examples: {len(names)} modules, not "
                                     f"{N_EXAMPLES}")
     launches, failed, total = {}, [], 0.0
     for name in names:
         mod = importlib.import_module(f"boofcv_tpu_torch.examples.{name}")
-        kt.reset_launch_count()
-        wg.reset_launch_count()
+        _reset_launches()
         rc, log, wall = _run_command(mod.main, ["--device", "cuda"])
-        n = {"klt_track": kt.launch_count(),
-             "window_gather": wg.launch_count()}
+        n = _launches()
         total += wall
         last = (log.strip().splitlines() or [""])[-1]
         print(f"examples: {name}: {1e3 * wall:.1f} ms rc={rc} last line "
               f"{last!r} launches klt_track={n['klt_track']} window_gather="
-              f"{n['window_gather']}")
+              f"{n['window_gather']} gn_pose={n['gn_pose']}")
         if rc != 0 or last != "OK" or "device: cuda" not in log:
             failed.append(name)
             print(log)
@@ -6633,7 +6794,12 @@ def _dist_ransac(dev, mesh) -> None:
     call = lambda: ransac_pnp_sharded(mesh, gen, w, o,
                                       num_hypotheses_per_device=256,
                                       inlier_threshold=1e-5)
-    call()
+    gap, n_refine, _ = _gn_check("dist ransac_pnp_sharded",
+                                 _capture_refine(call))
+    GN_FAMILY_ERR["dist ransac_pnp_sharded"] = gap
+    print(f"kernel: gn_pose dist ransac_pnp_sharded: {n_refine} refine "
+          f"calls against the plain route, step_tol 1e-6 and 0: "
+          f"max_abs_err={gap:.3e} (limit 1e-5)")
     (res, (R, t)), syncs = _count_sync_warnings(call)
     ms = _solve_ms(call, reps=5, warm_up=False)
     n_kernels, busy, _ = _profile_call(call)
@@ -6813,12 +6979,8 @@ def phase_dist(dev) -> None:
     one-rank NCCL group: the host has one card), then the CPU leg."""
     import torch.distributed as dist
     from boofcv_tpu_torch.dist import make_mesh
-    from boofcv_tpu_torch.kernels import klt_track as kt
-    from boofcv_tpu_torch.kernels import window_gather as wg
-    kt.reset_launch_count()
-    wg.reset_launch_count()
     mesh = make_mesh(device=dev)
-    walls = {}
+    walls, by_part = {}, {}
     try:
         print(f"dist: mesh {mesh.mesh.tolist()} on {mesh.device_type}, "
               f"backend {dist.get_backend()}, NCCL "
@@ -6827,16 +6989,22 @@ def phase_dist(dev) -> None:
                                             "NCCL")
         for part in (_dist_ba, _dist_ransac, _dist_matching,
                      _dist_reconstruction):
+            _reset_launches()
             t0 = time.perf_counter()
             part(dev, mesh)
             walls[part.__name__] = time.perf_counter() - t0
+            by_part[part.__name__] = _launches()
     finally:
         dist.destroy_process_group()
-    print(f"dist: hand-kernel launches over the phase: window_gather "
-          f"{wg.launch_count()}, klt_track {kt.launch_count()} (dist/ "
-          f"reaches neither)")
-    check(wg.launch_count() == 0 and kt.launch_count() == 0,
-          "dist: a hand kernel launched on a path that reaches none")
+    print(f"dist: hand-kernel launches by part: {by_part} (dist/ reaches "
+          f"neither window_gather nor klt_track; ransac_pnp_sharded's "
+          f"refine is gn_pose)")
+    check(all(n["window_gather"] == 0 and n["klt_track"] == 0
+              for n in by_part.values()),
+          "dist: window_gather or klt_track launched on a path that reaches "
+          "neither")
+    check(by_part["_dist_ransac"]["gn_pose"] >= 1,
+          "dist: ransac_pnp_sharded's refine did not launch gn_pose")
     t0 = time.perf_counter()
     _dist_cpu_leg()
     walls["_dist_cpu_leg"] = time.perf_counter() - t0
@@ -7060,6 +7228,69 @@ def _sweep_gather(dev, lefts, others):
                             f"{tag}", fn, "window_gather_empty_kernel", 50)
 
 
+def _gn_sweep_scene(dev, lead, n=600):
+    """[*lead] pose problems of n points as ``robust.ransac_pnp`` hands them
+    to the refine (R, t float32 0.035 rad and 5 cm off a true identity
+    pose; world 3-12 m ahead, obs with 1e-3 noise and weights in float64,
+    a fifth of the rows masked: weight 0, world 1.0, obs 0)."""
+    from boofcv_tpu_torch.geo import se3
+    g = torch.Generator().manual_seed(n + len(lead))
+    shape = tuple(lead) + (n,)
+    f64 = torch.float64
+    world = torch.cat([torch.rand(shape + (2,), generator=g, dtype=f64) * 8
+                       - 4, torch.rand(shape + (1,), generator=g,
+                                       dtype=f64) * 9 + 3], -1)
+    obs = (world[..., :2] / world[..., 2:]
+           + 1e-3 * torch.randn(shape + (2,), generator=g, dtype=f64))
+    keep = torch.rand(shape, generator=g) > 0.2
+    world = torch.where(keep[..., None], world, 1.0)
+    obs = torch.where(keep[..., None], obs, 0.0)
+    R0 = se3.exp_so3(torch.full(tuple(lead) + (3,), 0.02, dtype=f64))
+    t0 = torch.full(tuple(lead) + (3,), 0.03, dtype=f64)
+    return [x.to(dev) for x in (R0.float(), t0.float(), world, obs,
+                                keep.to(f64))]
+
+
+def _sweep_gn_pose(dev):
+    """``gn_pose`` at the VO cells' shapes, [600] and [16, 600] problems at
+    50 iterations (their ``refine_iterations``): the kernel against the
+    plain route (``geo/pnp._gn_pose_f32``) on the same tensors, the
+    kernel's device ms, ms a call over 200 calls and bound, the plain
+    route's device ms (every kernel it launches) and ms a call.  With the
+    refine's tolerance (1e-6) a problem leaves the loop when it converges;
+    with 0 every iteration runs, which the bound (:func:`_gn_bound`)
+    counts."""
+    from boofcv_tpu_torch.geo import pnp
+    from boofcv_tpu_torch.kernels import _nvcc
+    from boofcv_tpu_torch.kernels import gn_pose as gp
+    gp._kernel_lib()
+    rec = _nvcc.build_record("gn_pose")
+    print(f"sweep: gn_pose built={rec['built']} nvcc_s={rec['build_s']:.3f}")
+    for fn, regs, stores, loads, stack in ptxas_summary(rec["ptxas"]):
+        print(f"sweep: gn_pose ptxas: {fn} registers={regs} "
+              f"spill_stores={stores} spill_loads={loads} "
+              f"stack_frame={stack}")
+    iterations = 50
+    for lead in ((), (16,)):
+        args = _gn_sweep_scene(dev, lead)
+        n = args[2].shape[-2]
+        for tol in (1e-6, 0.0):
+            kernel = lambda: gp.gn_pose_cuda(*args, iterations, 1e-9, tol)
+            plain = lambda: pnp._gn_pose_f32(*args, iterations, 1e-9, tol)
+            (R, t), (Rp, tp) = kernel(), plain()
+            gap = max(float((R - Rp).abs().max()), float((t - tp).abs().max()))
+            check(gap <= 1e-5, f"gn_pose {list(lead)} step_tol={tol}: "
+                               f"{gap:.3e} from the plain route")
+            bnd = _gn_bound(args, iterations) if tol == 0 else None
+            what = f"gn_pose [{', '.join(map(str, lead + (n,)))}] " \
+                   f"iterations={iterations} step_tol={tol:g}"
+            _sweep_time(what, kernel, "gn_pose_kernel", 50, bnd,
+                        f" max_abs_from_plain={gap:.3e}")
+            print(f"sweep: {what} plain device_ms="
+                  f"{device_ms(plain, 3):.6f} ms_a_call="
+                  f"{cuda_ms(plain, 5):.6f}")
+
+
 def sweep_main(argv) -> int:
     """``chip_smoke.py --sweep``: see the module's docstring."""
     from boofcv_tpu_torch.kernels import _nvcc
@@ -7096,6 +7327,7 @@ def sweep_main(argv) -> int:
     lefts = torch.stack([torch.from_numpy(frames[i][0])
                          for i in range(17)]).to(dev)
     try:
+        _sweep_gn_pose(dev)
         _sweep_gather(dev, lefts, others)
         _sweep_klt(dev, lefts, others + loops)
     except SmokeFailure as e:
@@ -7125,9 +7357,13 @@ def main() -> int:
         measured = {"window_gather": phase_kernel(dev),
                     "klt_track": phase_klt_kernel(dev, frames)}
         single = phase_slice(dev, poses, frames)
+        measured["gn_pose"] = phase_gn_kernel(dev, "single stream",
+                                              single.pop("refine_calls"))
         batched = phase_batched_kernels(dev, frames)
-        launches = {"single stream": single["launches"],
-                    **phase_batched(dev, poses, frames, single)}
+        by_path, calls16 = phase_batched(dev, poses, frames, single)
+        batched["gn_pose"] = phase_gn_kernel(dev, "B=16", calls16)
+        del calls16
+        launches = {"single stream": single["launches"], **by_path}
         phase_720p(dev)
         phase_ba(dev)
         phase_ba_stages(dev)
@@ -7183,6 +7419,9 @@ def main() -> int:
         batched["klt_track"].pop("max_abs_err"), *KLT_FAMILY_ERR.values())
     measured["klt_track"]["max_abs_err_by_family"] = KLT_FAMILY_ERR
     measured["klt_track"]["tld_shape"] = TLD_KERNEL
+    measured["gn_pose"]["max_abs_err"] = max(
+        measured["gn_pose"]["max_abs_err"], *GN_FAMILY_ERR.values())
+    measured["gn_pose"]["max_abs_err_by_family"] = GN_FAMILY_ERR
     # each path names the kernels it runs (the sparse SSD path runs only
     # the gather); every one of them must have launched on it
     for path, counts in launches.items():
@@ -7192,8 +7431,8 @@ def main() -> int:
                       f"path {path!r}", file=sys.stderr)
                 return 1
     # top-level times and bound: the single-stream main path's shapes
-    # ([512] windows of 7x102; 512 tracks on 4 levels); "batched": the
-    # B = 8 and B = 16 shapes
+    # ([512] windows of 7x102; 512 tracks on 4 levels; one pose problem of
+    # 512 points); "batched": the B = 8 and B = 16 shapes
     from boofcv_tpu_torch.kernels import _nvcc
     fields = ("kernel", "registers", "spill_stores", "spill_loads",
               "stack_frame")

@@ -12,8 +12,10 @@ import torch
 
 from boofcv_tpu_torch.core.pyramid import PyramidConfig
 from boofcv_tpu_torch.feature import klt
+from boofcv_tpu_torch.geo import pnp
 from boofcv_tpu_torch.io import simulate
 from boofcv_tpu_torch.ip import pyramid_ops
+from boofcv_tpu_torch.kernels import gn_pose as gp
 from boofcv_tpu_torch.kernels import klt_track as kt
 from boofcv_tpu_torch.kernels import window_gather as wg
 
@@ -1733,3 +1735,188 @@ def test_cuda_mesh_with_a_failed_nccl_start_raises(cuda, nccl_group,
     with pytest.raises(dist.DistBackendError):
         make_mesh()
     assert not dist.is_initialized()
+
+
+# ---- the pose refine's kernel (kernels/gn_pose.py) ------------------------
+# The kernel's float32 sums run in another order than the plain version's
+# GEMMs, so the two agree to float32 resolution: 1e-5 on R and t, the
+# tolerance test_torch_geo.py::test_gauss_newton_pose[0-1e-05] holds the
+# port's float32 loop to against the reference.
+GN_TOL = 1e-5
+GN_DAMPING = 1e-9    # robust.ransac_pnp's
+GN_STEP_TOL = 1e-6   # the float32 stage's, geo/pnp.gauss_newton_pose
+
+
+def _rotation(w):
+    th = np.linalg.norm(w)
+    K = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+    return (np.eye(3) + np.sin(th) / th * K
+            + (1 - np.cos(th)) / th ** 2 * K @ K)
+
+
+def _gn_scene(lead=(), n=600, seed=0):
+    """Problems as ``robust.ransac_pnp`` hands them to the refine: R, t
+    float32 (a P3P hypothesis about 0.03 rad and 5 cm off the truth), and
+    float64 world points 3-12 m ahead, their normalized projections with
+    1e-3 noise and weights, a fifth of the rows masked (weight 0, world
+    1.0, obs 0).  Each problem its own truth, points and start."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(int(np.prod(lead))):
+        R = _rotation(rng.normal(0, 0.1, 3))
+        t = rng.normal(0, 0.5, 3)
+        world = np.concatenate([rng.uniform(-4, 4, (n, 2)),
+                                rng.uniform(3, 12, (n, 1))], -1)
+        cam = world @ R.T + t
+        obs = cam[:, :2] / cam[:, 2:] + rng.normal(0, 1e-3, (n, 2))
+        keep = rng.uniform(size=n) > 0.2
+        R0 = _rotation(rng.normal(0, 0.03 / 3 ** 0.5, 3)) @ R
+        t0 = t + rng.normal(0, 0.05 / 3 ** 0.5, 3)
+        out.append((R0, t0, np.where(keep[:, None], world, 1.0),
+                    np.where(keep[:, None], obs, 0.0), keep.astype(float)))
+    dtypes = (torch.float32, torch.float32) + (torch.float64,) * 3
+    return [torch.from_numpy(np.stack([o[i] for o in out]).reshape(
+        lead + out[0][i].shape)).to(d) for i, d in enumerate(dtypes)]
+
+
+def _gn_both(args, iterations, damping=GN_DAMPING):
+    """(the kernel's R, t; the plain version's) on the same tensors, and
+    the kernel's launches in between (1)."""
+    before = gp.launch_count()
+    kernel = gp.gn_pose_cuda(*args, iterations, damping, GN_STEP_TOL)
+    launches = gp.launch_count() - before
+    plain = pnp._gn_pose_f32(*args, iterations, damping, GN_STEP_TOL)
+    torch.cuda.synchronize()
+    return kernel, plain, launches
+
+
+@pytest.mark.parametrize("lead", [(), (16,)])
+@pytest.mark.parametrize("iterations", [10, 50])
+def test_gn_pose_kernel_matches_plain_version(cuda, lead, iterations):
+    """The kernel against the plain route (the float32 loop and the float64
+    Newton-polar steps) on the same CUDA tensors, with masked rows: R and t
+    within GN_TOL, float64, R a rotation; ``gauss_newton_pose`` on the card
+    is one launch of the kernel, bit for bit."""
+    args = [x.to(cuda) for x in _gn_scene(lead)]
+    (R, t), (Rp, tp), launches = _gn_both(args, iterations)
+    assert launches == 1
+    assert R.dtype == t.dtype == torch.float64
+    assert R.shape == lead + (3, 3) and t.shape == lead + (3,)
+    np.testing.assert_allclose(R.cpu(), Rp.cpu(), atol=GN_TOL, rtol=0)
+    np.testing.assert_allclose(t.cpu(), tp.cpu(), atol=GN_TOL, rtol=0)
+    eye = torch.eye(3, dtype=torch.float64, device=cuda)
+    assert float((R @ R.transpose(-1, -2) - eye).abs().max()) < 1e-12
+    before = gp.launch_count()
+    Rr, tr = pnp.gauss_newton_pose(*args, iterations=iterations,
+                                   damping=GN_DAMPING, polish_iterations=0)
+    assert gp.launch_count() == before + 1
+    assert torch.equal(Rr, R) and torch.equal(tr, t)
+
+
+def test_gn_pose_stream_equals_its_single_stream_bit_for_bit(cuda):
+    """One block a problem: a stream's result does not depend on its
+    batch-mates, so each of 16 equals its own single-stream launch bit for
+    bit."""
+    args = [x.to(cuda) for x in _gn_scene((16,), seed=1)]
+    R, t = gp.gn_pose_cuda(*args, 50, GN_DAMPING, GN_STEP_TOL)
+    for b in range(16):
+        R1, t1 = gp.gn_pose_cuda(*(x[b] for x in args), 50, GN_DAMPING,
+                                 GN_STEP_TOL)
+        assert torch.equal(R1, R[b]) and torch.equal(t1, t[b])
+
+
+def test_gn_pose_freezes_each_stream_on_its_own_step(cuda):
+    """test_gn_refine_freezes_each_stream_on_its_own_step on the card:
+    stream 0 starts at its optimum and stops after one step, stream 1 far
+    off keeps stepping; each agrees with the plain route and with its
+    single-stream launch, stream 0 beside a copy of itself is the same
+    bits, and stream 1 reaches the optimum."""
+    R0, t0, world, obs, wgt = _gn_scene(seed=2)
+    Ro, to = pnp.gauss_newton_pose(R0.double(), t0.double(), world, obs,
+                                   wgt, iterations=12)     # on the CPU
+    far = torch.from_numpy(_rotation(np.array([0.05, -0.04, 0.03])))
+    Rb = torch.stack([Ro, Ro @ far]).float().to(cuda)
+    tb = torch.stack([to, to + 0.1]).float().to(cuda)
+    wb, ob, gb = (torch.stack([x] * 2).to(cuda) for x in (world, obs, wgt))
+    (R, t), (Rp, tp), _ = _gn_both([Rb, tb, wb, ob, gb], 10)
+    np.testing.assert_allclose(R.cpu(), Rp.cpu(), atol=GN_TOL, rtol=0)
+    np.testing.assert_allclose(t.cpu(), tp.cpu(), atol=GN_TOL, rtol=0)
+    for b in range(2):
+        R1, t1 = gp.gn_pose_cuda(Rb[b], tb[b], wb[b], ob[b], gb[b], 10,
+                                 GN_DAMPING, GN_STEP_TOL)
+        assert torch.equal(R1, R[b]) and torch.equal(t1, t[b])
+    np.testing.assert_allclose(R[1].cpu(), Ro, atol=GN_TOL)
+    np.testing.assert_allclose(t[1].cpu(), to, atol=GN_TOL)
+    twin = lambda a: torch.stack([a[0], a[0]])
+    Rs, ts = gp.gn_pose_cuda(twin(Rb), twin(tb), wb, ob, gb, 10, GN_DAMPING,
+                             GN_STEP_TOL)
+    assert torch.equal(Rs[0], R[0]) and torch.equal(ts[0], t[0])
+    assert torch.equal(Rs[1], R[0]) and torch.equal(ts[1], t[0])
+
+
+def test_gn_pose_edge_cases_match_plain_version(cuda):
+    """No iterations (the Newton-polar steps alone; ``gauss_newton_pose``
+    then launches nothing and returns the start), a point behind the
+    camera, NaN in R or in one point (NaN in the same places: the whole
+    problem), and a singular H (no damping, every weight 0: NaN, as
+    ``cholesky_ex``'s failure gives)."""
+    args = [x.to(cuda) for x in _gn_scene((5,), n=200, seed=3)]
+    (R, t), (Rp, tp), launches = _gn_both(args, 0)
+    assert launches == 1
+    np.testing.assert_allclose(R.cpu(), Rp.cpu(), atol=1e-12, rtol=0)
+    assert torch.equal(t, tp)
+    before = gp.launch_count()
+    Rz, tz = pnp.gauss_newton_pose(*args, iterations=0, polish_iterations=0)
+    assert gp.launch_count() == before
+    assert torch.equal(Rz, args[0].double()) and torch.equal(tz,
+                                                             args[1].double())
+    R0, t0, world, obs, wgt = (x.clone() for x in args)
+    world[0, 3] = world[0, 3] * torch.tensor([1.0, 1.0, -1.0], device=cuda)
+    wgt[0, 3] = 1.0                                # behind the camera
+    R0[1, 0, 0] = float("nan")
+    world[2, 7, 1] = float("nan")
+    wgt[3] = 0.0
+    (R, t), (Rp, tp), _ = _gn_both([R0, t0, world, obs, wgt], 10,
+                                   damping=0.0)
+    for a, b in ((R, Rp), (t, tp)):
+        nan = torch.isnan(a)
+        assert torch.equal(nan, torch.isnan(b))
+        assert bool(nan[1:4].all()) and not bool(nan[0].any() | nan[4].any())
+        np.testing.assert_allclose(a[~nan].cpu(), b[~nan].cpu(), atol=GN_TOL,
+                                   rtol=0)
+
+
+def test_gn_pose_makes_no_host_sync(cuda):
+    """``gauss_newton_pose`` on the card reads nothing on the host (an
+    error under the debug mode), with weights given and without."""
+    args = [x.to(cuda) for x in _gn_scene((16,), seed=4)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pnp.gauss_newton_pose(*args, iterations=50, damping=GN_DAMPING,
+                              polish_iterations=0)
+        pnp.gauss_newton_pose(*args[:4], iterations=10)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_gn_pose_route_takes_what_the_cpu_route_takes(cuda):
+    """``gauss_newton_pose`` on the card accepts what the plain loop
+    accepts: R and t of one problem beside world [B, N, 3], obs and
+    weights of one problem, t in float16 and weights as integers.  One
+    launch, within GN_TOL of the same call on the CPU."""
+    R0, t0, world, obs, wgt = _gn_scene(n=200, seed=5)
+    world = world + 1e-3 * torch.arange(3.0, dtype=world.dtype)[:, None,
+                                                                 None]
+    args = (R0, t0.half(), world, obs, (wgt > 0).long())
+    before = gp.launch_count()
+    R, t = pnp.gauss_newton_pose(*(x.to(cuda) for x in args),
+                                 iterations=10, damping=GN_DAMPING,
+                                 polish_iterations=0)
+    assert gp.launch_count() == before + 1
+    Rc, tc = pnp.gauss_newton_pose(*args, iterations=10, damping=GN_DAMPING,
+                                   polish_iterations=0)
+    assert R.shape == (3, 3, 3) and t.shape == (3, 3)
+    np.testing.assert_allclose(R.cpu(), Rc, atol=GN_TOL, rtol=0)
+    np.testing.assert_allclose(t.cpu(), tc, atol=GN_TOL, rtol=0)

@@ -1,8 +1,9 @@
-"""The two kernel wrappers' argument checks and packing, on the CPU.
+"""The kernel wrappers' argument checks and packing, on the CPU.
 
-``klt_track._pack`` and ``window_gather._gather_geometry`` are what the
-wrappers run before a launch: one pass of cheap checks that fills the C
-structs (or the launch arguments), and on anything refused the detailed
+``klt_track._pack``, ``window_gather._gather_geometry`` and
+``gn_pose._pack`` are what the wrappers run before a launch: one pass of
+cheap checks that fills the C structs (or the launch arguments), and on
+anything refused the detailed
 checks that name it.  They take tensors on any device (the kernels
 themselves only run on the card, see test_torch_cuda.py), so what the
 kernel is handed, and every refusal's message, is checked here."""
@@ -13,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from boofcv_tpu_torch.geo import pnp
+from boofcv_tpu_torch.kernels import gn_pose as gp
 from boofcv_tpu_torch.kernels import klt_track as kt
 from boofcv_tpu_torch.kernels import window_gather as wg
 
@@ -175,7 +178,11 @@ def test_wrappers_refuse_cpu_tensors_before_any_check():
     o = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         wg.gather_windows_cuda(torch.zeros(8, 8), o, o, 3, 3)
-    assert (kt.launch_count(), wg.launch_count()) == before
+    before += (gp.launch_count(),)
+    with pytest.raises(ValueError, match="CUDA"):
+        gp.gn_pose_cuda(*_gn_args(), 10, 1e-9, 1e-6)
+    assert (kt.launch_count(), wg.launch_count(),
+            gp.launch_count()) == before
 
 
 def test_each_thread_packs_its_own_structs():
@@ -188,6 +195,7 @@ def test_each_thread_packs_its_own_structs():
 
     def worker(n):
         args = _klt_args(n=n)
+        gn = _gn_args(n=n)
         try:
             for _ in range(200):
                 kt._pack(*args)
@@ -198,6 +206,10 @@ def test_each_thread_packs_its_own_structs():
                                                args[5].int(), 7, n)[1:]
                 if geometry != ((0, 60, 80, n), (n, 7, n)):
                     errors.append(-n)
+                gp._pack(*gn, n, 1e-9, 1e-6)
+                if (gp._launch_args()[0].iterations != n
+                        or gp._launch_args()[0].world != gn[2].data_ptr()):
+                    errors.append(1000 + n)
         except Exception as e:          # noqa: BLE001 - reported below
             errors.append(repr(e))
 
@@ -214,3 +226,171 @@ def test_each_thread_packs_its_own_structs():
     finally:
         sys.setswitchinterval(old)
     assert errors == []
+
+
+F32, F64 = torch.float32, torch.float64
+RANSAC_DTYPES = (F32, F32, F64, F64, F64)   # as robust.ransac_pnp passes them
+
+
+def _gn_args(lead=(), n=7, dtypes=RANSAC_DTYPES):
+    """R, t, world, obs, weights of ``gn_pose_cuda`` (values do not
+    matter to the packing)."""
+    g = torch.Generator().manual_seed(n)
+    shapes = (lead + (3, 3), lead + (3,), lead + (n, 3), lead + (n, 2),
+              lead + (n,))
+    return [torch.rand(s, generator=g, dtype=d)
+            for s, d in zip(shapes, dtypes)]
+
+
+@pytest.mark.parametrize("lead,dtypes", [((), RANSAC_DTYPES),
+                                         ((16,), RANSAC_DTYPES),
+                                         ((2, 3), (F64,) * 5),
+                                         ((4,), (F32,) * 5)])
+def test_gn_pose_pack_fills_the_kernel_struct(lead, dtypes):
+    """Every field of ``GnPoseArgs`` as the kernel reads it: the input
+    pointers, a float64 flag each, the problems (leading axes flattened),
+    points, iterations, damping and tolerance; the output pointers are the
+    wrapper's, after its allocation."""
+    args = _gn_args(lead, dtypes=dtypes)
+    idx, shape, b = gp._pack(*args, 50, 1e-9, 1e-6)
+    assert (idx, tuple(shape), b) == (-1, lead, int(np.prod(lead)))
+    a, _ = gp._launch_args()
+    assert [a.R, a.t, a.world, a.obs, a.wgt] == [x.data_ptr() for x in args]
+    assert (a.R_out, a.t_out) == (None, None)
+    assert (a.b, a.n, a.iterations) == (b, 7, 50)
+    assert (a.damping, a.step_tol) == (np.float32(1e-9), np.float32(1e-6))
+    assert [a.R_f64, a.t_f64, a.world_f64, a.obs_f64, a.wgt_f64] == [
+        int(d is F64) for d in dtypes]
+    assert ctypes.sizeof(gp._Args) == gp._ARGS_FMT.size
+
+
+def _bad_gn_cases():
+    """(what, change to the arguments, the refusal's words)."""
+    def at(i, f):
+        return lambda a: a.__setitem__(i, f(a[i]))
+    return [
+        ("R half", at(0, lambda x: x.half()),
+         "R must be float32 or float64"),
+        ("weights int64", at(4, lambda x: x.long()),
+         "weights must be float32 or float64"),
+        ("R of one problem", at(0, lambda x: x[0]), r"R must be \(3, 3, 3\)"),
+        ("t 2 columns", at(1, lambda x: x[:, :2].contiguous()),
+         r"t must be \(3, 3\)"),
+        ("obs 3 columns", at(3, lambda x: torch.cat([x, x[..., :1]], -1)),
+         r"obs must be \(3, 7, 2\)"),
+        ("weights one short", at(4, lambda x: x[:, 1:].contiguous()),
+         r"weights must be \(3, 7\)"),
+        ("world 2 columns", at(2, lambda x: x[..., :2].contiguous()),
+         r"world must be \[\.\.\., N, 3\]"),
+        ("world 1-D", at(2, lambda x: x[0, 0]), "world must be"),
+        ("world transposed",
+         at(2, lambda x: x.transpose(-1, -2).contiguous().transpose(-1, -2)),
+         "world must be contiguous"),
+        ("obs strided",
+         at(3, lambda x: torch.cat([x, x], -1)[..., ::2]),
+         "obs must be contiguous"),
+        ("not a tensor", at(0, lambda x: x.numpy()), "R must be a tensor"),
+        ("iterations", lambda a: a.__setitem__(5, -1), "negative"),
+    ]
+
+
+@pytest.mark.parametrize("what,change,match", _bad_gn_cases(),
+                         ids=[c[0] for c in _bad_gn_cases()])
+def test_gn_pose_pack_refuses_what_the_kernel_does_not_take(what, change,
+                                                            match):
+    args = _gn_args((3,)) + [50, 1e-9, 1e-6]
+    change(args)
+    with pytest.raises(ValueError, match=match):
+        gp._pack(*args)
+
+
+def _pose_scene(lead=(), n=120, seed=0):
+    """A PnP problem: points 4-8 m ahead, their normalized projections
+    with 1e-3 noise, a tenth of them masked as ``robust.ransac_pnp`` masks
+    rows (weight 0, world 1.0, obs 0), and a start pose 0.03 rad and 5 cm
+    off."""
+    rng = np.random.default_rng(seed)
+    world = np.concatenate([rng.uniform(-3, 3, lead + (n, 2)),
+                            rng.uniform(4, 8, lead + (n, 1))], -1)
+    obs = world[..., :2] / world[..., 2:] + rng.normal(0, 1e-3,
+                                                       lead + (n, 2))
+    keep = rng.uniform(size=lead + (n,)) > 0.1
+    world = np.where(keep[..., None], world, 1.0)
+    obs = np.where(keep[..., None], obs, 0.0)
+    w = np.array([0.02, -0.01, 0.015])
+    th = np.linalg.norm(w)
+    Kx = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+    R0 = (np.eye(3) + np.sin(th) / th * Kx
+          + (1 - np.cos(th)) / th ** 2 * Kx @ Kx)
+    R0 = np.broadcast_to(R0, lead + (3, 3))
+    t0 = np.broadcast_to(np.array([0.03, -0.02, 0.05]), lead + (3,))
+    return (torch.from_numpy(R0.astype(np.float32)),
+            torch.from_numpy(t0.astype(np.float32)),
+            torch.from_numpy(world), torch.from_numpy(obs),
+            torch.from_numpy(keep.astype(np.float64)))
+
+
+@pytest.mark.parametrize("lead,polish", [((), 0), ((4,), 0), ((), 2)])
+def test_gauss_newton_pose_on_cpu_takes_the_plain_loop(lead, polish):
+    """CPU tensors never reach the kernel: no launch, and the float32 stage
+    is the plain version's, bit for bit (the polish after it too)."""
+    R0, t0, world, obs, wgt = _pose_scene(lead)
+    before = gp.launch_count()
+    R, t = pnp.gauss_newton_pose(R0, t0, world, obs, wgt, iterations=12,
+                                 damping=1e-9, polish_iterations=polish)
+    assert gp.launch_count() == before
+    Rp, tp = pnp._gn_pose_f32(R0, t0, world, obs, wgt, 12 - polish, 1e-9,
+                              1e-6)
+    if polish:
+        Rp, tp = pnp._gn_pose_loop(Rp, tp, world, obs, wgt, polish, 1e-9,
+                                   torch.float64, 1e-14)
+    assert R.dtype == t.dtype == torch.float64
+    assert torch.equal(R, Rp) and torch.equal(t, tp)
+    # the true pose is the identity: the refine got there, masked rows
+    # adding nothing, and R is a rotation after the Newton-polar steps
+    eye = torch.eye(3, dtype=torch.float64)
+    assert float((R - eye).abs().max()) < 2e-3
+    assert float(t.abs().max()) < 2e-2
+    assert float((R @ R.transpose(-1, -2) - eye).abs().max()) < 1e-12
+
+
+@pytest.mark.parametrize("dtype,shape,want", [
+    (torch.float16, (3, 3), torch.float32),
+    (torch.bfloat16, (4, 3, 3), torch.float32),
+    (torch.int64, (3, 3), torch.float32),
+    (torch.float64, (3, 3), torch.float64),
+    (torch.float32, (4, 3, 3), torch.float32)])
+def test_kernel_input_casts_and_broadcasts_as_the_plain_loop_reads(
+        dtype, shape, want):
+    """What ``gauss_newton_pose`` hands the kernel: float32 or float64 as
+    given, any other dtype cast to float32 (the plain loop's cast), the
+    leading shape broadcast to world's, contiguous; an input already so
+    is passed on as it is."""
+    x = torch.arange(9).reshape(shape[-2:]).to(dtype).expand(shape)
+    y = pnp._kernel_input(x, (4, 3, 3))
+    assert y.dtype == want and y.shape == (4, 3, 3) and y.is_contiguous()
+    assert torch.equal(y, x.to(want).expand(4, 3, 3))
+    if x.is_contiguous() and x.shape == (4, 3, 3):
+        assert y is x
+
+
+def test_gauss_newton_pose_broadcasts_on_cpu():
+    """The contract both routes keep: world's leading shape is the
+    problems', and R, t, obs and weights broadcast to it in any real dtype,
+    giving what the same call with each expanded and cast gives, to the
+    float32 loop's resolution (1e-5: a broadcast operand takes another
+    GEMM, which sums in another order)."""
+    R0, t0, world, obs, wgt = _pose_scene()
+    world = world + 1e-3 * torch.arange(4.0, dtype=world.dtype)[:, None,
+                                                                 None]
+    R, t = pnp.gauss_newton_pose(R0, t0.half(), world, obs, wgt.long(),
+                                 iterations=12, damping=1e-9,
+                                 polish_iterations=0)
+    ex = lambda x, s: x.expand(s)
+    Rp, tp = pnp.gauss_newton_pose(
+        ex(R0, (4, 3, 3)), ex(t0.half().float(), (4, 3)), world,
+        ex(obs, (4,) + obs.shape), ex(wgt.float(), (4,) + wgt.shape),
+        iterations=12, damping=1e-9, polish_iterations=0)
+    assert R.shape == (4, 3, 3) and t.shape == (4, 3)
+    np.testing.assert_allclose(R, Rp, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(t, tp, atol=1e-5, rtol=0)
