@@ -45,11 +45,12 @@ def _seeds(text: str) -> list:
 def readings(bench, workload, seconds, seeds, control, name, device=None,
              kind="controls"):
     """One dict a seed: the run's check numbers and its ``correct``;
-    ``control`` True applies the modules ``name`` of ``kind``."""
-    from harness.cell import _import_port
+    ``control`` True applies the modules ``name`` of ``kind`` to the port
+    handle of the cell's kind."""
+    port = bench.resolve(workload)["kind"].port()
     out = []
     for seed in seeds:
-        undo = ([bench.module(kind, c).apply(_import_port())
+        undo = ([bench.module(kind, c).apply(port)
                  for c in name.split(",")] if control else [])
         try:
             res = cell.run(bench, workload, seed, seconds, False,

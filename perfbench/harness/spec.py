@@ -3,7 +3,11 @@ found by name and checked against the contract's limits.
 
 Layout under the benchmark folder (``perfbench/``):
 
-- ``configs/<config>.json``: a configuration (``file`` in BENCHMARK.json);
+- ``configs/<config>.json``: a configuration (``file`` in BENCHMARK.json),
+  naming its kind;
+- ``kinds/<kind>.py``: what a run of that kind of configuration does: the
+  port modules it reaches, its set-up from the seed, its step, the strata
+  of the held steps and the check against the plain reference;
 - ``traffic/<traffic>.json``: a traffic mix, read by the driver it names;
 - ``drivers/<driver>.py``: a way of handing frames to the port;
 - ``workloads/<cell>.json``: a cell's own settings (its sample for the
@@ -11,7 +15,8 @@ Layout under the benchmark folder (``perfbench/``):
 - ``metrics/<metric>.json``: a metric's reader and that reader's arguments;
 - ``readers/<reader>.py``: the code that reads a metric;
 - ``spans/<span>.json``: a span's targets (module and attribute);
-- ``rooflines/<counts>.py``: a kernel's operations and bytes.
+- ``rooflines/<counts>.py``: a kernel's operations and bytes;
+- ``reference/``: the plain references the kinds' checks load by path.
 
 A later cell, configuration, traffic mix or metric is new files and
 entries; nothing here names one.
@@ -23,6 +28,7 @@ import importlib.util
 import json
 import os
 import re
+import sys
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
@@ -38,6 +44,29 @@ def _read_json(path: str) -> dict:
         raise SpecError(f"missing file {path}")
     with open(path) as f:
         return json.load(f)
+
+
+def _load(mod_name: str, path: str):
+    """Execute the file at ``path`` as a module of its own.  The files
+    beside it that it imports by their bare names (``from vo_ref import
+    ...``) are its folder's: while it runs, its folder leads ``sys.path``
+    and no module of such a name is in ``sys.modules``; afterwards those
+    names are as they were, so another folder's file of the same name
+    is never shadowed."""
+    folder = os.path.dirname(path)
+    own = {f[:-3] for f in os.listdir(folder) if f.endswith(".py")}
+    saved = {n: sys.modules.pop(n) for n in own if n in sys.modules}
+    sys.path.insert(0, folder)
+    try:
+        spec = importlib.util.spec_from_file_location(mod_name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    finally:
+        del sys.path[sys.path.index(folder)]
+        for n in own:
+            sys.modules.pop(n, None)
+        sys.modules.update(saved)
+    return mod
 
 
 class Benchmark:
@@ -82,29 +111,33 @@ class Benchmark:
         return [m for m in self.spec[kind]
                 if "workloads" not in m or cell in m["workloads"]]
 
-    def module(self, kind: str, name: str):
-        """``<kind>/<name>.py`` of the benchmark folder, loaded once."""
-        path = os.path.join(self.dir, kind, f"{name}.py")
+    def module(self, folder: str, name: str):
+        """``<folder>/<name>.py`` of the benchmark folder, loaded once.
+        ``name`` may lead through subfolders (``ba/check``)."""
+        path = os.path.join(self.dir, folder, f"{name}.py")
         if path not in self.modules:
             if not os.path.exists(path):
                 raise SpecError(f"missing file {path}")
-            mod_name = f"_perfbench_{kind}_{name}".replace(".", "_")
-            spec = importlib.util.spec_from_file_location(mod_name, path)
-            mod = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(mod)
-            self.modules[path] = mod
+            mod_name = re.sub(r"\W", "_", f"_perfbench_{folder}_{name}")
+            self.modules[path] = _load(mod_name, path)
         return self.modules[path]
 
     def resolve(self, cell: str) -> dict:
-        """Everything one run of ``cell`` reads, found by name."""
+        """Everything one run of ``cell`` reads, found by name.  A traffic
+        mix that names no driver leaves the stepping to the kind."""
         entry = self.cell(cell)
+        config = self.config(entry["config"])
+        if "kind" not in config:
+            raise SpecError(f"config {entry['config']!r} names no kind")
         traffic = self.traffic(entry["traffic"])
         per_layer = self.metrics_of(cell, "per_layer")
         return {
             "entry": entry,
-            "config": self.config(entry["config"]),
+            "config": config,
+            "kind": self.module("kinds", config["kind"]),
             "traffic": traffic,
-            "driver": self.module("drivers", traffic["driver"]),
+            "driver": (self.module("drivers", traffic["driver"])
+                       if "driver" in traffic else None),
             "settings": self.settings(cell),
             "end_to_end": [(m, self.metric(m["name"]))
                            for m in self.metrics_of(cell, "end_to_end")],

@@ -20,6 +20,7 @@ def test_benchmark_is_valid_and_every_cell_resolves():
     for w in bench.spec["workloads"]:
         r = bench.resolve(w["name"])
         assert r["config"]["name"] == w["config"]
+        assert r["kind"] is bench.module("kinds", "stereo_vo")
         assert {m["name"] for m, _ in r["end_to_end"]} == {
             "frame_p95_ms", "setup_s"}
         assert "window_frames_per_s" in [m["name"] for m, _ in r["per_layer"]]
