@@ -19,10 +19,12 @@ What differs from the reference, and why:
   observations sorted by view, or observation pairs sorted by view pair.
   ``obs_view`` is constant over a solve, so the order is fixed once
   (:func:`_view_order`) and every iteration adds the same terms in the same
-  order: two solves of one problem give the same bits.  An ``index_add_``
-  on the card adds with atomics in an order that changes from launch to
-  launch, and LM's accept/reject turns one different ulp into another
-  trajectory.
+  order: two solves of one problem give the same bits (on the card the
+  fill-in's sums are one kernel, ``kernels/schur_fill``, that forms the
+  pair products in registers and adds each run in that order).  An
+  ``index_add_`` on the card adds with atomics in an order that changes
+  from launch to launch, and LM's accept/reject turns one different ulp
+  into another trajectory.
 * **No host sync in the loop.**  ``cholesky_ex`` never raises: where it
   reports a matrix that is not positive definite the step is poisoned with
   NaN, the candidate's cost is NaN, and the step is rejected as in the
@@ -69,6 +71,7 @@ import torch
 from boofcv_tpu_torch._config import resolve_device
 from boofcv_tpu_torch.geo import se3
 from boofcv_tpu_torch.geo.smalllinalg import inv3
+from boofcv_tpu_torch.kernels import schur_fill
 from boofcv_tpu_torch.utils.profiling import span
 
 
@@ -360,14 +363,15 @@ def _pair_products(W, Y, out=None):
     return pair
 
 
-# The assembly's memory budget, in bytes of one group's pair products.
-# Its largest temporaries are those products and the copy of them that the
-# segmented sum gathers in view-pair order, 2 x this at once: 8 GiB, a
-# tenth of an 80 GB card, beside the [V, V, D, D] system (1 GB at BAL
-# Venice's 1,778 views).  Each group adds one dense [V * V, D, D] partial
-# to the system, written and added once; at 4 GiB of products a group
-# that fixed traffic (4 GB at Venice) is a fifth of its products' own
-# (about 5 passes over them), and Venice's ~104 M pairs take 8 groups.
+# The assembly's memory budget, in bytes of one group's pair products
+# (D x D floats a pair).  On the card the fill-in forms the products in
+# registers (kernels/schur_fill), so the budget now bounds only what a
+# group keeps of its pairs: their order, 8 bytes a pair (0.84 GB over
+# Venice's ~104 M pairs), and the keys sorted to make it.  The plain
+# version (a CPU tensor) still writes the products and a sorted copy of
+# them, 2 x this at once.  Each group adds into one dense [V * V, D, D]
+# system (1 GB at BAL Venice's 1,778 views) the blocks of its view pairs;
+# Venice's ~104 M pairs take 8 groups.
 _PAIR_BYTES = 1 << 32
 
 # Bucket widths: one per track length up to this, then buckets that each
@@ -386,11 +390,13 @@ class Buckets(NamedTuple):
     ``slot0 : slot0 + n * w`` viewed as ``[n, w]``, the points
     ``point0 : point0 + n`` of the plan, each point's valid slots first.
     A group is consecutive pieces; its ``ViewOrder`` runs over its slots
-    and over the pairs of its pieces, piece by piece.
+    and over the pairs of its pieces, piece by piece, and its
+    :class:`Fill` says how the fill-in walks those pairs.
     """
     pieces: tuple               # host: (slot0, n, w, point0) a piece
     groups: tuple               # host: (piece0, piece1, slot0, slot1, pairs)
     orders: tuple               # ViewOrder of each group
+    fills: tuple                # Fill of each group
     points: torch.Tensor        # [Q] each planned point's index in the problem
     where: torch.Tensor         # [P] each point's plan position (Q: no slot)
     slot_point: torch.Tensor    # [N] plan position of each slot's point
@@ -399,6 +405,28 @@ class Buckets(NamedTuple):
     obs_view: torch.Tensor      # [N] int32
     obs_valid: torch.Tensor     # [N] bool
     lengths: np.ndarray | None  # host: points by track length, [L + 1]
+
+
+class Fill(NamedTuple):
+    """How the Schur fill-in walks a group's slot pairs (:func:`_fill_in`),
+    built once per solve by :func:`_fill_table`."""
+    pieces: tuple               # host: (pair0, slot0, w) of each piece,
+    #                             pair and slot offsets within the group
+    runs: torch.Tensor          # [V * V] int32: the view pairs, those with
+    #                             a pair first, each part in key order
+
+
+def _fill_table(pieces, slot0: int, order: ViewOrder) -> Fill:
+    """The :class:`Fill` of a group: its ``pieces`` (the plan's rows) and
+    its ``order``; the group's slots begin at ``slot0``.  The runs are
+    sorted on the device (nothing read back)."""
+    rows, pair0 = [], 0
+    for a, n, w, _ in pieces:
+        rows.append((pair0, a - slot0, w))
+        pair0 += n * w * w
+    empty = (order.pair_offsets.diff() == 0).to(torch.uint8)
+    runs = torch.argsort(empty, stable=True).to(torch.int32)
+    return Fill(tuple(rows), runs)
 
 
 _pairs_last = (0, 0)
@@ -512,19 +540,21 @@ def _buckets(prob: BAProblem, num_views: int) -> Buckets:
     obs_valid = valid.reshape(-1)[source]
     if noted:
         torch._assert_async(obs_valid.sum() == valid.sum())
-    orders = []
+    orders, fills = [], []
     for p0, p1, s0, s1, _ in groups:
         keys = [_keys(obs_view[a:a + n * w].view(n, w), num_views,
                       obs_valid[a:a + n * w].view(n, w))
                 for a, n, w, _ in pieces[p0:p1]]
         orders.append(_order(torch.cat([k[0] for k in keys]),
                              torch.cat([k[1] for k in keys]), num_views))
+        fills.append(_fill_table(pieces[p0:p1], s0, orders[-1]))
     Q = points.shape[0]
     where = torch.full((P,), Q, dtype=torch.long, device=dev).scatter_(
         0, points, torch.arange(Q, device=dev))
     _pairs_last = (sum(g[4] for g in groups), valid_pairs)
-    return Buckets(pieces, groups, tuple(orders), points, where, slot_point,
-                   source // max(L, 1), prob.obs_xy.reshape(-1, 2)[source],
+    return Buckets(pieces, groups, tuple(orders), tuple(fills), points,
+                   where, slot_point, source // max(L, 1),
+                   prob.obs_xy.reshape(-1, 2)[source],
                    obs_view, obs_valid, hist if noted else None)
 
 
@@ -538,8 +568,10 @@ def _table_plan(obs_view, num_views: int, order=None) -> Buckets:
         order = _view_order(obs_view, num_views)
     points = torch.arange(P, device=dev)
     slot_point = torch.arange(P * L, device=dev) // max(L, 1)
-    return Buckets(((0, P, L, 0),), ((0, 1, 0, P * L, P * L * L),), (order,),
-                   points, points, slot_point, slot_point, None,
+    pieces = ((0, P, L, 0),)
+    return Buckets(pieces, ((0, 1, 0, P * L, P * L * L),), (order,),
+                   (_fill_table(pieces, 0, order),), points, points,
+                   slot_point, slot_point, None,
                    obs_view.reshape(-1),
                    torch.ones(P * L, dtype=torch.bool, device=dev), None)
 
@@ -598,6 +630,38 @@ def _slot_scale(plan: Buckets, Jv, Jp, hvv_diag):
     return Jv_s, Jp_s, s_v, s_p
 
 
+def _pair_sums(W, Y, order: ViewOrder, fill: Fill):
+    """The plain version of a group's fill-in: [V * V, D, D], for each view
+    pair the sum of W_l^T Y_m over its slot pairs (l, m) in ``order``; W, Y
+    [N, 3, D] the group's slot arrays.  Every product of the group is
+    written (:func:`_pair_products`), then summed by view pair
+    (:func:`_segment_sum`)."""
+    D = W.shape[-1]
+    pairs = order.pair_perm.shape[0]
+    products = W.new_empty((pairs, D, D))
+    ends = [row[0] for row in fill.pieces[1:]] + [pairs]
+    for (pair0, slot0, w), end in zip(fill.pieces, ends):
+        n = (end - pair0) // (w * w)
+        _pair_products(W[slot0:slot0 + n * w].view(n, w, 3, D),
+                       Y[slot0:slot0 + n * w].view(n, w, 3, D),
+                       out=products[pair0:end].view(n, w, w, D, D))
+    return _segment_sum(products, order.pair_perm, order.pair_offsets)
+
+
+def _fill_in(S, W, Y, order: ViewOrder, fill: Fill) -> None:
+    """The Schur fill-in of one group, in place: S [V * V, D, D] -= the
+    sum of W_l^T Y_m over the slot pairs (l, m) of each view pair, in
+    ``order``; W, Y [N, 3, D] the group's slot arrays.  A CUDA tensor
+    launches ``kernels/schur_fill`` once, which forms each product in
+    registers; elsewhere the plain version runs (:func:`_pair_sums`)."""
+    if S.is_cuda:
+        schur_fill.schur_fill_cuda(S, W, Y, order.pair_perm,
+                                   order.pair_offsets, fill.runs,
+                                   fill.pieces)
+    else:
+        S -= _pair_sums(W, Y, order, fill)
+
+
 def _local_system(plan, Jv, Jp, r, lam, num_views: int, solve_dtype=None,
                   order=None):
     """The reduced camera system of the points of ``plan``, piece by
@@ -626,13 +690,15 @@ def _local_system(plan, Jv, Jp, r, lam, num_views: int, solve_dtype=None,
     if solve_dtype is None:
         solve_dtype = Jp.dtype
     V, D = num_views, Jv.shape[-1]
-    S = Hvv = gv = corr = None
+    S = Jv.new_zeros((V * V, D, D))
+    Hvv = gv = corr = None
     Hpp_inv, W, gp = [], [], []
 
     def add(total, part):
         return part if total is None else total + part
 
-    for (p0, p1, s0, s1, pairs), order in zip(plan.groups, plan.orders):
+    for (p0, p1, _, _, _), order, fill in zip(plan.groups, plan.orders,
+                                              plan.fills):
         blocks = [_point_blocks(_piece(Jv, pc), _piece(Jp, pc),
                                 _piece(r, pc), lam, solve_dtype)
                   for pc in plan.pieces[p0:p1]]
@@ -646,23 +712,15 @@ def _local_system(plan, Jv, Jp, r, lam, num_views: int, solve_dtype=None,
         corr = add(corr, _segment_sum(flat(6), order.perm, order.offsets))
         # Schur fill-in: S[v_l, v_m] -= W_l^T Y_m over the slot pairs of
         # each point
-        products = Jv.new_empty((pairs, D, D))
-        at = 0
-        for b, (_, n, w, _) in zip(blocks, plan.pieces[p0:p1]):
-            _pair_products(b[1], b[5],
-                           out=products[at:at + n * w * w].view(n, w, w, D, D))
-            at += n * w * w
-        S = add(S, _segment_sum(products, order.pair_perm, order.pair_offsets))
-        del products
+        W.append(flat(1))
+        _fill_in(S, W[-1], flat(5), order, fill)
         for b in blocks:
             Hpp_inv.append(b[0])
-            W.append(b[1].reshape((-1, 3, D)))
             gp.append(b[2])
-    if S is None:                               # no observation at all
-        S = Jv.new_zeros((V * V, D, D))
+    if Hvv is None:                             # no observation at all
         Hvv = Jv.new_zeros((V, D, D))
         gv = corr = Jv.new_zeros((V, D))
-    S = -S.reshape(V, V, D, D)
+    S = S.view(V, V, D, D)
     ar = torch.arange(V, device=S.device)
     S[ar, ar] += Hvv
     cat = lambda xs, shape: torch.cat(xs) if xs else Jv.new_zeros(shape)

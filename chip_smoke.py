@@ -11,8 +11,9 @@ Phases, each printed on its own line(s); any failure exits non-zero:
 
 1. environment: card name and power limit, torch / CUDA versions, nvcc,
    TF32 switches; fails without a CUDA device;
-2. build: the three kernels (``window_gather``, ``klt_track``,
-   ``gn_pose``) from ``boofcv_tpu_torch/kernels/csrc``, one ``nvcc`` each, and the native
+2. build: the four kernels (``window_gather``, ``klt_track``,
+   ``gn_pose``, ``schur_fill``) from ``boofcv_tpu_torch/kernels/csrc``,
+   one ``nvcc`` each, and the native
    host library (``boofcv_tpu_torch/native/ccl.cpp`` and ``merge.cpp``,
    one ``g++``), started together; ptxas's registers, spills and stack
    frame of every kernel instantiation;
@@ -70,17 +71,21 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    iterations, float32 with mixed precision and float64: reprojection RMS
    at most 7.5e-4, costs that never rise, two solves bit-equal, no host
    sync inside ``optimize``, the float64 cost within 5 % of a numpy/scipy
-   solver's run on the host; ms per solve, kernels, device busy time, peak
-   memory;
+   solver's run on the host, ``schur_fill`` launched once a group an
+   iteration; ms per solve, kernels, device busy time, peak memory;
 10. ``ba_stages:`` one iteration part by part, the library calls' host and
-    device ms, the iteration's bound, and the Schur fill-in's sum over view
-    pairs four ways (the solver's sorted segmented sum, ``index_add_``,
-    ``index_put_`` with accumulate, the dense one-hot product);
+    device ms, the iteration's bound, and the Schur fill-in five ways: the
+    ``schur_fill`` kernel (the solver's), the plain version's products and
+    sorted segmented sum, ``index_add_``, ``index_put_`` with accumulate,
+    the dense one-hot product; the kernel's device ms, bound and gap from
+    the plain version are its record in the kernels' JSON line;
 11. ``ba_vo:`` the VO over the first 16 frames with
     ``SlidingWindowBA(window=8)`` behind it: every state pushed, the window
-    solved from the third frame on; the hand kernels' launches counted;
+    solved from the third frame on; the hand kernels' launches counted
+    (``schur_fill`` too);
 12. ``ba_scale:`` 1000 views, 100,000 points, 3 iterations: ms per
-    iteration, the Cholesky's share, peak memory;
+    iteration, the Cholesky's share, ``schur_fill``'s launches, peak
+    memory;
 13. the dense-image breadth path at the reference breadth benchmark's size,
     each phase with ms per call, kernels, device busy ms, idle share, host
     syncs (none allowed), peak memory, its bound and a numpy baseline timed
@@ -244,6 +249,7 @@ The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 
     python3 chip_smoke.py --sweep [--baseline [TAG=]DIR ...] [--out DIR]
+                                  [--kernel NAME ...]
 
 times the hand kernels alone, shape by shape, and nothing else:
 device ms of one launch (the profiler's median kernel time, ``device_ms``),
@@ -253,7 +259,10 @@ and [16, 600] pose problems, 50 iterations, beside the plain route's times
 (``_sweep_gn_pose``; this tree only), for ``window_gather`` at
 [512] windows of 7x102, 7x7 and 24x16, [16, 512] 7x102 on 16 frames,
 [64, 512] and [256, 512] on one shared frame (each bit-equal to the plain
-version; an empty launch of each grid beside it), and ``klt_track`` at
+version; an empty launch of each grid beside it), ``schur_fill`` on each
+group of the first LM iteration at BAL Venice's counts (the benchmark's
+``venice.lm10`` problem; ``_sweep_schur_fill``, this tree only) beside
+the plain version run on the card, and ``klt_track`` at
 [512] tracks on 4 levels of 640x480 (also on 1 and 2 levels, and with the
 iteration cap at 1, 2 and 4), [4, 512], [8, 512] and [16, 512] on as many
 frames, [64, 512] and [256, 512] on one shared frame.  ``klt_track`` runs
@@ -267,7 +276,8 @@ tree's own wrapper, in turns (baseline, this tree, this tree, baseline) in
 one process on one card, with each tree's faults, positions and windows
 compared bit for bit with this tree's.  Each library's ``cuobjdump -sass``
 and ptxas report go under ``--out`` (default
-``boofcv_tpu_torch/kernels/_build/sweep``, git-ignored).
+``boofcv_tpu_torch/kernels/_build/sweep``, git-ignored).  ``--kernel
+NAME`` (repeatable) times only the kernels named.
 """
 
 from __future__ import annotations
@@ -310,6 +320,10 @@ KERNELS = {
         "source": "boofcv_tpu_torch/kernels/csrc/gn_pose.cu",
         "replaces": "no TPU kernel: XLA fuses the lax.while_loop of "
                     "boofcv_tpu/geo/pnp.py:575"},
+    "schur_fill": {
+        "source": "boofcv_tpu_torch/kernels/csrc/schur_fill.cu",
+        "replaces": "no TPU kernel: XLA fuses the one-hot einsum of "
+                    "boofcv_tpu/geo/ba.py:_local_system"},
 }
 # published peaks of one H100 SXM: device memory rate, f32 outside the
 # tensor cores
@@ -506,17 +520,15 @@ def ptxas_summary(text: str) -> list:
 
 
 def phase_build():
-    """The three kernels, one nvcc each, and the native host library
+    """The four kernels, one nvcc each, and the native host library
     (g++), started together."""
     from boofcv_tpu_torch import native
-    from boofcv_tpu_torch.kernels import (_nvcc, gn_pose, klt_track,
-                                          window_gather)
+    from boofcv_tpu_torch.kernels import _nvcc
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        futures = [pool.submit(_timed_native_build),
-                   pool.submit(window_gather._kernel_lib),
-                   pool.submit(klt_track._kernel_lib),
-                   pool.submit(gn_pose._kernel_lib)]
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
+        futures = [pool.submit(_timed_native_build)] + [
+            pool.submit(mod._kernel_lib)
+            for mod in _kernel_modules().values()]
         for f in futures:
             f.result()
     wall = time.perf_counter() - t0
@@ -894,9 +906,10 @@ def _rot_err_deg(Rest_c2w, Rgt_w2c) -> float:
 
 def _kernel_modules() -> dict:
     """The hand kernels' wrapper modules by kernel name."""
-    from boofcv_tpu_torch.kernels import gn_pose, klt_track, window_gather
+    from boofcv_tpu_torch.kernels import (gn_pose, klt_track, schur_fill,
+                                          window_gather)
     return {"window_gather": window_gather, "klt_track": klt_track,
-            "gn_pose": gn_pose}
+            "gn_pose": gn_pose, "schur_fill": schur_fill}
 
 
 def _reset_launches() -> None:
@@ -906,9 +919,12 @@ def _reset_launches() -> None:
 
 
 def _launches() -> dict:
-    """Every hand kernel's launches since :func:`_reset_launches`."""
+    """Every hand kernel's launches since :func:`_reset_launches`;
+    ``schur_fill``, which only bundle adjustment runs, only where it
+    launched."""
     return {name: mod.launch_count()
-            for name, mod in _kernel_modules().items()}
+            for name, mod in _kernel_modules().items()
+            if name != "schur_fill" or mod.launch_count()}
 
 
 def _capture_refine(fn) -> list:
@@ -1879,10 +1895,13 @@ def phase_ba(dev) -> dict:
     out = {}
     for name, prob in probs.items():
         solve = lambda: ba.optimize(prob, iterations=10)
+        groups = len(ba._buckets(prob, len(Rs)).groups)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
+        _reset_launches()
         (res, info), syncs = _count_sync_warnings(solve)
         torch.cuda.synchronize()
+        n_fill = _launches().get("schur_fill", 0)
         peak = torch.cuda.max_memory_allocated(dev) / 2**20
         costs = _check_costs(f"ba {name}", info)
         rms = _rms(ba, res)
@@ -1912,7 +1931,8 @@ def phase_ba(dev) -> dict:
               f"share {1 - busy_ms / med:.4f} of the median solve; host "
               f"syncs inside optimize={sum(syncs.values())} "
               f"{dict(sorted(syncs.items()))}; two solves bit-equal={same}; "
-              f"peak device memory MiB={peak:.1f}")
+              f"schur_fill launches={n_fill} ({groups} groups x 10 "
+              f"iterations); peak device memory MiB={peak:.1f}")
         _print_library_ops(f"ba: {name}", prof, "one profiled solve")
         top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
         print(f"ba: {name} host time by op, the six largest (self ms x calls, "
@@ -1928,6 +1948,8 @@ def phase_ba(dev) -> dict:
         check(sum(syncs.values()) == 0,
               f"ba {name}: optimize made host syncs: {dict(syncs)}")
         check(same, f"ba {name}: two solves of one problem differ in bits")
+        check(n_fill == 10 * groups, f"ba {name}: schur_fill launched "
+                                     f"{n_fill} times, not 10 x {groups}")
         check(n_kernels > 0, f"ba {name}: nothing ran on the device")
         check(rms <= 7.5e-4, f"ba {name}: rms {rms} > 7.5e-4")
         out[name] = {"ms": med, "final_cost": float(info["final_cost"]),
@@ -1957,15 +1979,31 @@ def _iteration_flops(P, L, V, D) -> float:
             + 6 * n * n + 2 * 2 * n * n)
 
 
-def phase_ba_stages(dev) -> None:
+def _fill_bound(order, W) -> dict:
+    """Bound of one ``schur_fill`` launch over a group's ``order`` and
+    slot array ``W`` [N, 3, D]: per valid pair D x D elements of 3
+    multiply-adds and an add, and per view pair with a pair D x D
+    subtractions; the valid slots' W and Y rows read once, the valid
+    pairs' indices, each run's offsets and runs entry, and the blocks of
+    the view pairs with a pair read and written once."""
+    off = order.pair_offsets
+    runs = off.shape[0] - 1
+    pairs, slots = int(off[-1]), int(order.offsets[-1])
+    full = int((off.diff() > 0).sum())
+    D, s = W.shape[-1], W.element_size()
+    return bound(2 * slots * 3 * D * s + 8 * pairs + 12 * runs + 8
+                 + 2 * full * D * D * s, pairs * D * D * 7 + full * D * D)
+
+
+def phase_ba_stages(dev) -> dict:
     """One LM iteration of the f32 mixed window solve, part by part with a
     synchronize around each (host wall ms, medians of 7 iterations after a
     warm-up one), the library calls under the profiler, the iteration's
-    bound, and two other assemblies of the reduced system beside the
-    solver's.  The parts are the solver's own stages over the [P, L]
-    table taken as a plan of one piece (``_scale_jacobians`` and
+    bound, and the Schur fill-in five ways: the solver's kernel and four
+    others beside it.  The parts are the solver's own stages over the
+    [P, L] table taken as a plan of one piece (``_scale_jacobians`` and
     ``_local_system`` run the slot code ``optimize`` runs), and its costs
-    over the solve's plan."""
+    over the solve's plan.  Returns the kernel's record."""
     from boofcv_tpu_torch.geo import ba
     Rs, ts, pts, obs_xy, obs_view, obs_valid, fixed = window_ba_scene()
     prob = ba.make_problem(Rs, ts, pts, obs_xy, obs_view, obs_valid,
@@ -2034,17 +2072,25 @@ def phase_ba_stages(dev) -> None:
         S, gv_t, prob.fixed_views, lam, refine_steps=2))
     _print_library_ops("ba_stages:", prof, "one profiled reduced solve")
 
-    # the Schur fill-in's sum over view pairs, four ways: the solver's sorted
-    # segmented sum, index_add_ (atomics on the card), index_put_ with
-    # accumulate (sorts on every call), all of the one [P, L, L, D, D]
-    # operand; and the dense product through a [P, L, V] one-hot, which
-    # needs no such operand
+    # the Schur fill-in's sum over view pairs, five ways: the solver's
+    # kernel (it subtracts from S in place; shown negated); the plain
+    # version's sorted segmented sum, index_add_ (atomics on the card),
+    # index_put_ with accumulate (sorts on every call), all of the one
+    # [P, L, L, D, D] operand; and the dense product through a [P, L, V]
+    # one-hot, which needs no such operand
     Hpp_inv, Wm, gp, gv_obs, Hvv_obs, Y, corr = ba._point_blocks(
         Jv_s, Jp_s, r, lam, torch.float64)
     view = prob.obs_view.long()
     key = (view[:, :, None] * V + view[:, None, :]).reshape(-1)
     pair = ba._pair_products(Wm, Y).reshape(-1, D, D)
     zeros = lambda: torch.zeros((V * V, D, D), device=dev)
+    fill = ba._table_plan(prob.obs_view, V, order).fills[0]
+    W3, Y3 = Wm.reshape(-1, 3, D), Y.reshape(-1, 3, D)
+
+    def kernel():
+        S = zeros()
+        ba._fill_in(S, W3, Y3, order, fill)
+        return S.neg_()
 
     def dense():
         onehot = torch.nn.functional.one_hot(view, V).to(torch.float32)
@@ -2055,7 +2101,8 @@ def phase_ba_stages(dev) -> None:
         return (Wg @ Yg).reshape(V, D, V, D).permute(0, 2, 1, 3).reshape(
             V * V, D, D)
 
-    ways = (("pair_products (the operand, as the solver builds it)",
+    ways = (("schur_fill (the solver's kernel)", kernel),
+            ("pair_products (the plain version's operand)",
              lambda: ba._pair_products(Wm, Y)),
             ("sorted_segment_sum", lambda: ba._segment_sum(
                 pair, order.pair_perm, order.pair_offsets)),
@@ -2063,13 +2110,15 @@ def phase_ba_stages(dev) -> None:
             ("index_put_accumulate", lambda: zeros().index_put_(
                 (key,), pair, accumulate=True)),
             ("dense_one_hot (products included)", dense))
-    want = ways[1][1]()
+    want = ways[2][1]()
     scale = float(want.abs().max())
+    dev_ms, rec = {}, {}
     for name, fn in ways:
         got = [fn() for _ in range(5)]
         same = all(torch.equal(got[0], g) for g in got[1:])
+        dev_ms[name] = device_ms(fn, 5)
         line = (f"ba_stages: Schur fill-in, {name}: device_ms="
-                f"{device_ms(fn, 5):.4f} (profiler, all its kernels) "
+                f"{dev_ms[name]:.4f} (profiler, all its kernels) "
                 f"ms_20_back_to_back_calls={cuda_ms(fn, 20):.4f} "
                 f"five_calls_bit_equal={same}")
         if got[0].shape == want.shape:
@@ -2078,9 +2127,27 @@ def phase_ba_stages(dev) -> None:
             check(err <= 1e-4, f"ba_stages: {name} differs from the sorted "
                                f"sum by {err}")
         print(line)
-        if name == "sorted_segment_sum":
-            check(same, "ba_stages: the sorted segmented sum changes from "
-                        "call to call")
+        if name.startswith(("sorted_segment_sum", "schur_fill")):
+            check(same, f"ba_stages: {name} changes from call to call")
+        if name.startswith("schur_fill"):
+            rec = {"shape": f"[{P * L}] slots, {int(order.pair_offsets[-1])}"
+                            f" valid pairs, V={V}, D={D}, float32",
+                   "max_rel_err": err, "five_calls_bit_equal": same,
+                   "bit_equal_to_plain": bool(torch.equal(got[0], want))}
+    S = zeros()
+    bnd = _fill_bound(order, W3)
+    rec.update(device_ms=device_ms(lambda: ba._fill_in(S, W3, Y3, order,
+                                                       fill),
+                                   5, "schur_fill_kernel"),
+               plain_device_ms=dev_ms[ways[1][0]] + dev_ms[ways[2][0]],
+               **bnd)
+    print(f"ba_stages: schur_fill kernel alone device_ms="
+          f"{rec['device_ms']:.4f} bound_ms={bnd['bound_ms']:.6f} "
+          f"bound_by={bnd['bound_by']} share="
+          f"{bnd['bound_ms'] / rec['device_ms']:.4f}; the plain version "
+          f"(products and sorted sum) device_ms={rec['plain_device_ms']:.4f}"
+          f"; bit-equal to it={rec['bit_equal_to_plain']}")
+    return rec
 
 
 def phase_ba_vo(dev, poses, frames) -> dict:
@@ -2139,13 +2206,16 @@ def phase_ba_vo(dev, poses, frames) -> dict:
           f"camera-centre error: raw VO {err_vo:.6f}, refined window "
           f"{err_ba:.6f} (motion {float(np.linalg.norm(c_gt)):.6f}); launches "
           f"klt_track={launches['klt_track']} window_gather="
-          f"{launches['window_gather']} gn_pose={launches['gn_pose']}")
+          f"{launches['window_gather']} gn_pose={launches['gn_pose']} "
+          f"schur_fill={launches.get('schur_fill', 0)}")
     for name in ("klt_track", "gn_pose"):
         check(launches[name] == n - 1, f"ba_vo: {name} launched "
                                        f"{launches[name]} times in {n - 1} "
                                        f"steps")
     check(launches["window_gather"] >= 2,
           "ba_vo: window_gather was not launched by the bootstrap")
+    check(launches.get("schur_fill", 0) >= len(opt_ms),
+          "ba_vo: the window's solves did not launch schur_fill")
     return launches
 
 
@@ -2159,10 +2229,13 @@ def phase_ba_scale(dev) -> None:
                            fixed_views=fixed, dtype=torch.float32, device=dev)
     iters = 3
     solve = lambda: ba.optimize(prob, iterations=iters)
+    groups = len(ba._buckets(prob, len(Rs)).groups)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches()
     res, info = solve()
     torch.cuda.synchronize()
+    n_fill = _launches().get("schur_fill", 0)
     peak = torch.cuda.max_memory_allocated(dev) / 2**20
     costs = _check_costs("ba_scale", info)
     ms = _solve_ms(solve, reps=3)
@@ -2182,10 +2255,13 @@ def phase_ba_scale(dev) -> None:
           f"busy {busy_ms:.3f} ms, idle share {1 - busy_ms / med:.4f}; "
           f"cholesky_ex [{6 * len(Rs)}, {6 * len(Rs)}] device ms per "
           f"iteration={chol / iters:.3f}, its share of the device's busy "
-          f"time {chol / busy_ms:.4f}; peak device memory MiB={peak:.1f} "
-          f"(scene made on the host in {gen_s:.2f}s)")
+          f"time {chol / busy_ms:.4f}; schur_fill launches={n_fill} "
+          f"({groups} groups x {iters} iterations); peak device memory "
+          f"MiB={peak:.1f} (scene made on the host in {gen_s:.2f}s)")
     check(torch.isfinite(res.points).all() and torch.isfinite(res.R).all(),
           "ba_scale: non-finite result")
+    check(n_fill == iters * groups, f"ba_scale: schur_fill launched "
+                                    f"{n_fill} times, not {iters} x {groups}")
 
 
 # ---------------------------------------------------------------------------
@@ -7296,6 +7372,106 @@ def _sweep_gn_pose(dev):
                   f"{cuda_ms(plain, 5):.6f}")
 
 
+def _venice_problem(dev, seed=1):
+    """The float32 BA problem of the benchmark's ``venice.lm10`` cell (BAL
+    Venice's counts, ``perfbench/traffic/bal_scene.py`` and the
+    configuration's file), at start 0 of ``seed``, through
+    ``io/bal.to_problem``."""
+    import importlib.util
+    from boofcv_tpu_torch.io import bal
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "_bal_scene", os.path.join(root, "perfbench", "traffic",
+                                   "bal_scene.py"))
+    scene = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(scene)
+    with open(os.path.join(root, "perfbench", "configs",
+                           "ba.bal_venice_1778.json")) as f:
+        config = json.load(f)
+    d = scene.draw(seed, config)
+    cams, pts = scene.start(seed, config, d, 0)
+    return bal.to_problem(dict(d, cameras=cams, points=pts),
+                          dtype=torch.float32, device=dev)
+
+
+def _sweep_schur_fill(dev):
+    """``schur_fill`` at BAL Venice's shapes: the first LM iteration's
+    Jacobi-scaled W and Y of each group of the solve's plan (lam 1e-3,
+    point blocks inverted in float64, as ``optimize`` runs them), the
+    kernel against the plain version (``ba._pair_sums``, run on the card)
+    on the same tensors: the largest
+    gap over S's largest element, whether the bits agree, the kernel's
+    device ms (profiler) and bound, the plain version's device ms (every
+    kernel it launches), and their sums over the groups: one iteration's
+    fill-in."""
+    from boofcv_tpu_torch.geo import ba
+    from boofcv_tpu_torch.kernels import _nvcc
+    from boofcv_tpu_torch.kernels import schur_fill as sf
+    sf._kernel_lib()
+    rec = _nvcc.build_record("schur_fill")
+    print(f"sweep: schur_fill built={rec['built']} "
+          f"nvcc_s={rec['build_s']:.3f}")
+    for fn, regs, stores, loads, stack in ptxas_summary(rec["ptxas"]):
+        print(f"sweep: schur_fill ptxas: {fn} registers={regs} "
+              f"spill_stores={stores} spill_loads={loads} "
+              f"stack_frame={stack}")
+    t0 = time.perf_counter()
+    prob = _venice_problem(dev)
+    V = prob.R.shape[0]
+    plan = ba._buckets(prob, V)
+    Jv, Jp, r = ba._slot_jacobians(prob, plan)
+    Jv, Jp, _, _ = ba._slot_scale(plan, Jv, Jp,
+                                  ba._slot_view_diag(Jv, plan, V))
+    lam = torch.full((), 1e-3, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    print(f"sweep: schur_fill Venice V={V} slots={Jv.shape[0]} groups="
+          f"{len(plan.groups)} pieces={len(plan.pieces)} (made in "
+          f"{time.perf_counter() - t0:.1f}s)")
+    total = {"kernel": 0.0, "plain": 0.0, "bound": 0.0, "bytes": 0,
+             "flops": 0}
+    S = torch.zeros((V * V,) + Jv.shape[-1:] * 2, device=dev)
+    worst = 0.0
+    for g, ((p0, p1, _, _, pairs), order, fill) in enumerate(zip(
+            plan.groups, plan.orders, plan.fills)):
+        blocks = [ba._point_blocks(ba._piece(Jv, pc), ba._piece(Jp, pc),
+                                   ba._piece(r, pc), lam, torch.float64)
+                  for pc in plan.pieces[p0:p1]]
+        W, Y = (torch.cat([b[i].reshape((-1,) + b[i].shape[2:])
+                           for b in blocks]) for i in (1, 5))
+        del blocks
+        plain = lambda: ba._pair_sums(W, Y, order, fill)
+        want = plain()
+        got = torch.zeros_like(want)
+        ba._fill_in(got, W, Y, order, fill)
+        got.neg_()
+        gap = float((got - want).abs().max()) / float(want.abs().max())
+        same = bool(torch.equal(got, want))
+        del got, want
+        worst = max(worst, gap)
+        check(gap <= 1e-5, f"schur_fill Venice group {g}: {gap:.3e} from "
+                           f"the plain version")
+        bnd = _fill_bound(order, W)
+        kernel_ms = _sweep_time(
+            f"schur_fill Venice group {g} ({pairs} pairs formed, "
+            f"{int(order.pair_offsets[-1])} valid)",
+            lambda: ba._fill_in(S, W, Y, order, fill), "schur_fill_kernel",
+            5, bnd, f" max_rel_from_plain={gap:.3e} bit_equal={same}")
+        plain_ms = device_ms(plain, 2)
+        print(f"sweep: schur_fill Venice group {g} plain device_ms="
+              f"{plain_ms:.6f}")
+        total["kernel"] += kernel_ms
+        total["plain"] += plain_ms
+        total["bound"] += bnd["bound_ms"]
+        total["bytes"] += bnd["bytes"]
+        total["flops"] += bnd["flops"]
+    print(f"sweep: schur_fill Venice one iteration ({len(plan.groups)} "
+          f"launches): device_ms={total['kernel']:.6f} bound_ms="
+          f"{total['bound']:.6f} (bytes={total['bytes']} flops="
+          f"{total['flops']}) share={total['bound'] / total['kernel']:.4f}; "
+          f"plain version device_ms={total['plain']:.6f}; largest gap "
+          f"{worst:.3e}")
+
+
 def sweep_main(argv) -> int:
     """``chip_smoke.py --sweep``: see the module's docstring."""
     from boofcv_tpu_torch.kernels import _nvcc
@@ -7304,7 +7480,11 @@ def sweep_main(argv) -> int:
                     metavar="[TAG=]DIR")
     ap.add_argument("--out", default=os.path.join(
         "boofcv_tpu_torch", "kernels", "_build", "sweep"))
+    ap.add_argument("--kernel", action="append", choices=list(KERNELS),
+                    help="time only these kernels (repeatable; default: "
+                         "all)")
     a = ap.parse_args(argv)
+    only = set(a.kernel or KERNELS)
     if not torch.cuda.is_available():
         print("chip_smoke --sweep: no CUDA device", file=sys.stderr)
         return 1
@@ -7321,20 +7501,27 @@ def sweep_main(argv) -> int:
                                          else f"baseline{i}"), tree))
     # this tree's klt_track with each Gauss-Newton loop at every count
     loops = [_SweepTree("single_loop", ".", ("-DKLT_SPLIT_ABOVE=2147483647",)),
-             _SweepTree("split_loop", ".", ("-DKLT_SPLIT_ABOVE=0",))]
+             _SweepTree("split_loop", ".", ("-DKLT_SPLIT_ABOVE=0",))
+             ] if "klt_track" in only else []
     for o in others + loops:
         records.update({f"{o.tag}_{n}": r for n, r in o.records.items()})
     for tag, rec in records.items():
         with open(os.path.join(a.out, f"{tag}.ptxas.txt"), "w") as f:
             f.write(rec["ptxas"] or "not measured: no report kept\n")
     _dump_sass({tag: rec["library"] for tag, rec in records.items()}, a.out)
-    _, frames = _scene(17, K, H, W, seed=0)
-    lefts = torch.stack([torch.from_numpy(frames[i][0])
-                         for i in range(17)]).to(dev)
+    if only & {"window_gather", "klt_track"}:
+        _, frames = _scene(17, K, H, W, seed=0)
+        lefts = torch.stack([torch.from_numpy(frames[i][0])
+                             for i in range(17)]).to(dev)
     try:
-        _sweep_gn_pose(dev)
-        _sweep_gather(dev, lefts, others)
-        _sweep_klt(dev, lefts, others + loops)
+        if "gn_pose" in only:
+            _sweep_gn_pose(dev)
+        if "window_gather" in only:
+            _sweep_gather(dev, lefts, others)
+        if "klt_track" in only:
+            _sweep_klt(dev, lefts, others + loops)
+        if "schur_fill" in only:
+            _sweep_schur_fill(dev)
     except SmokeFailure as e:
         print(f"chip_smoke --sweep: FAILED: {e}", file=sys.stderr)
         return 1
@@ -7371,7 +7558,8 @@ def main() -> int:
         launches = {"single stream": single["launches"], **by_path}
         phase_720p(dev)
         phase_ba(dev)
-        phase_ba_stages(dev)
+        measured["schur_fill"] = phase_ba_stages(dev)
+        batched["schur_fill"] = None            # no stream axis
         launches["VO with window BA"] = phase_ba_vo(dev, poses, frames)
         phase_ba_scale(dev)
         clock("the VO and BA phases")

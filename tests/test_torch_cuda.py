@@ -633,6 +633,73 @@ def test_ba_on_card_table_without_a_note_reads_nothing_back(cuda):
                                ia["costs"].cpu().numpy(), rtol=1e-12)
 
 
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+def test_schur_fill_kernel_matches_plain_version(cuda, dtype, monkeypatch):
+    """``kernels/schur_fill`` against the plain fill-in (``_pair_products``
+    and ``_segment_sum`` on the CPU) on a bucketed plan with tracks of 3
+    to 24 views and a budget small enough for many groups: the card's and
+    the CPU's plans order the pairs alike, and each group's S agrees to
+    the dtype's rounding (the kernel fuses a product's adds into fmas);
+    one launch a group."""
+    from boofcv_tpu_torch.geo import ba
+    from boofcv_tpu_torch.kernels import schur_fill as sf
+    monkeypatch.setattr(ba, "_PAIR_BYTES", 81 * 8 * 20000)
+    V = 30
+    plans = [ba._buckets(_ba_scene(dtype, dev, V=V, P=1500, L=24, seed=5), V)
+             for dev in ("cpu", cuda)]
+    assert len(plans[0].groups) > 2
+    assert max(w for _, _, w, _ in plans[0].pieces) > 16
+    rng = np.random.default_rng(6)
+    tol = 1e-5 if dtype == torch.float32 else 1e-13
+    for g, (_, _, s0, s1, _) in enumerate(plans[0].groups):
+        orders = [p.orders[g] for p in plans]
+        assert torch.equal(orders[0].pair_perm, orders[1].pair_perm.cpu())
+        assert torch.equal(plans[0].fills[g].runs,
+                           plans[1].fills[g].runs.cpu())
+        W, Y = (torch.from_numpy(rng.normal(size=(s1 - s0, 3, 9))).to(dtype)
+                for _ in range(2))
+        S = torch.from_numpy(rng.normal(size=(V * V, 9, 9))).to(dtype)
+        want = S.clone()
+        ba._fill_in(want, W, Y, orders[0], plans[0].fills[g])
+        got = S.to(cuda)
+        before = sf.launch_count()
+        ba._fill_in(got, W.to(cuda), Y.to(cuda), orders[1], plans[1].fills[g])
+        torch.cuda.synchronize()
+        assert sf.launch_count() == before + 1
+        err = float((got.cpu() - want).abs().max())
+        assert err <= tol * float((want - S).abs().max()), (g, err)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+def test_ba_with_the_schur_fill_kernel_repeats_and_syncs_nothing(
+        cuda, dtype, monkeypatch):
+    """``optimize`` on the card with tracks wider than 16 and several
+    groups: ``schur_fill`` launches once a group an iteration, nothing is
+    read back inside the solve (an error under the debug mode), and two
+    solves give the same bits."""
+    from boofcv_tpu_torch.geo import ba
+    from boofcv_tpu_torch.kernels import schur_fill as sf
+    monkeypatch.setattr(ba, "_PAIR_BYTES", 81 * 8 * 20000)
+    prob = _ba_scene(dtype, cuda, V=30, P=1500, L=24, seed=7)
+    groups = len(ba._buckets(prob, 30).groups)
+    assert groups > 2
+    ba.optimize(prob, iterations=1)
+    torch.cuda.synchronize()
+    before = sf.launch_count()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a, ia = ba.optimize(prob, iterations=8)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert sf.launch_count() == before + 8 * groups
+    b, ib = ba.optimize(prob, iterations=8)
+    for k in ("R", "t", "intr", "points"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
+    assert torch.equal(ia["costs"], ib["costs"])
+    assert float(ia["final_cost"]) < 1e-2 * float(ia["initial_cost"])
+
+
 def test_window_ba_on_card(cuda):
     """``SlidingWindowBA`` behind the VO on the card: one host sync a push,
     a refined window with finite poses and a cost that does not rise."""

@@ -1,9 +1,9 @@
 """The kernel wrappers' argument checks and packing, on the CPU.
 
-``klt_track._pack``, ``window_gather._gather_geometry`` and
-``gn_pose._pack`` are what the wrappers run before a launch: one pass of
-cheap checks that fills the C structs (or the launch arguments), and on
-anything refused the detailed
+``klt_track._pack``, ``window_gather._gather_geometry``, ``gn_pose._pack``
+and ``schur_fill._pack`` are what the wrappers run before a launch: one
+pass of cheap checks that fills the C structs (or the launch arguments),
+and on anything refused the detailed
 checks that name it.  They take tensors on any device (the kernels
 themselves only run on the card, see test_torch_cuda.py), so what the
 kernel is handed, and every refusal's message, is checked here."""
@@ -14,9 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from boofcv_tpu_torch.geo import pnp
+from boofcv_tpu_torch.geo import ba, pnp
 from boofcv_tpu_torch.kernels import gn_pose as gp
 from boofcv_tpu_torch.kernels import klt_track as kt
+from boofcv_tpu_torch.kernels import schur_fill as sf
 from boofcv_tpu_torch.kernels import window_gather as wg
 
 SCALES = (1, 2, 4)
@@ -394,3 +395,212 @@ def test_gauss_newton_pose_broadcasts_on_cpu():
     assert R.shape == (4, 3, 3) and t.shape == (4, 3)
     np.testing.assert_allclose(R, Rp, atol=1e-5, rtol=0)
     np.testing.assert_allclose(t, tp, atol=1e-5, rtol=0)
+
+
+def _long_tracks(V=40, P=300, longest=30, L=34, seed=0):
+    """A BA problem (float64, the CPU, track lengths noted) whose points
+    are seen by 2 to ``longest`` consecutive views, each point's
+    observations in random columns of a [P, L] table with invalid slots
+    between them.  Only the views matter here."""
+    rng = np.random.default_rng(seed)
+    lengths = np.minimum(2 + rng.zipf(1.5, P), longest)
+    lengths[:3] = (longest, 17, 24)
+    view = np.zeros((P, L), np.int64)
+    valid = np.zeros((P, L), bool)
+    for p, n in enumerate(lengths):
+        cols = rng.permutation(L)[:n]
+        view[p, cols] = (rng.integers(V) + np.arange(n)) % V
+        valid[p, cols] = True
+    return ba.make_problem(np.tile(np.eye(3), (V, 1, 1)), np.zeros((V, 3)),
+                           rng.normal(size=(P, 3)), np.zeros((P, L, 2)),
+                           view, valid, model="snavely", device="cpu")
+
+
+def _decode(pairs, pieces):
+    """The slots (l, m) of a group's pair indices, as csrc/schur_fill.cu
+    decodes them: the last piece with pair0 <= e holds e, and e - pair0 =
+    (point * width + a) * width + b."""
+    rows = np.asarray(pieces, np.int64)
+    k = np.searchsorted(rows[:, 0], pairs, side="right") - 1
+    pair0, slot0, w = rows[k].T
+    point, rem = np.divmod(pairs - pair0, w * w)
+    a, b = np.divmod(rem, w)
+    return slot0 + point * w + a, slot0 + point * w + b
+
+
+@pytest.mark.parametrize("budget", [None, 81 * 8 * 900])
+def test_fill_tables_decode_to_every_valid_pair_once(budget, monkeypatch):
+    """The fill table ``_buckets`` builds for each group: pieces in
+    increasing pair0 with the group's own slot offsets, and the view pairs
+    that have a pair listed first, each part in key order.  Every pair
+    index in a run decodes to two valid slots of one point whose views are
+    the run's; over the groups every valid (point, v_l, v_m) appears once.
+    With a small budget the plan has many groups and tracks wider than
+    16."""
+    if budget is not None:
+        monkeypatch.setattr(ba, "_PAIR_BYTES", budget)
+    prob = _long_tracks()
+    V = prob.R.shape[0]
+    plan = ba._buckets(prob, V)
+    assert len(plan.fills) == len(plan.groups) == len(plan.orders)
+    assert (len(plan.groups) > 4) == (budget is not None)
+    assert max(w for _, _, w, _ in plan.pieces) == 30
+    view = plan.obs_view.long().numpy()
+    found = []
+    for (p0, p1, s0, s1, pairs), order, fill in zip(
+            plan.groups, plan.orders, plan.fills):
+        assert len(fill.pieces) == p1 - p0
+        assert [row[1:] for row in fill.pieces] == [
+            (a - s0, w) for a, _, w, _ in plan.pieces[p0:p1]]
+        assert fill.pieces[0][0] == 0 and all(
+            b[0] - a[0] == n * w * w for a, b, (_, n, w, _) in zip(
+                fill.pieces, fill.pieces[1:], plan.pieces[p0:p1]))
+        off = order.pair_offsets.numpy()
+        runs = fill.runs.numpy()
+        assert fill.runs.dtype == torch.int32 and runs.shape == (V * V,)
+        full = off[runs + 1] > off[runs]
+        n_full = int(full.sum())
+        assert full[:n_full].all() and not full[n_full:].any()
+        assert (np.diff(runs[:n_full]) > 0).all()
+        assert (np.diff(runs[n_full:]) > 0).all()
+        perm = order.pair_perm.numpy()[:off[-1]]
+        key = np.repeat(np.arange(V * V), np.diff(off))
+        sl, sm = _decode(perm, fill.pieces)
+        assert ((0 <= sl) & (sl < s1 - s0) & (0 <= sm) & (sm < s1 - s0)).all()
+        sl, sm = sl + s0, sm + s0
+        assert (view[sl] * V + view[sm] == key).all()
+        point = plan.slot_point.numpy()
+        assert (point[sl] == point[sm]).all()
+        assert plan.obs_valid.numpy()[sl].all()
+        assert plan.obs_valid.numpy()[sm].all()
+        found.append(np.stack([plan.points.numpy()[point[sl]], view[sl],
+                               view[sm]], 1))
+    found = np.concatenate(found)
+    v = prob.obs_view.long().numpy()
+    ok = prob.obs_valid.numpy()
+    want = [(p, a, b) for p in range(v.shape[0]) for a in v[p][ok[p]]
+            for b in v[p][ok[p]]]
+    assert len(found) == len(want) == ba.pair_counts()[1]
+    assert sorted(map(tuple, found.tolist())) == sorted(want)
+
+
+def test_kernel_sums_as_decoded_are_the_plain_fill_in(monkeypatch):
+    """What the kernel adds, emulated from the fill table alone (each run's
+    pairs decoded and summed in run order, the sum subtracted from S),
+    is what the plain version (``_pair_products`` and ``_segment_sum``)
+    subtracts, group by group, within float64 rounding; the plain version
+    launches nothing."""
+    monkeypatch.setattr(ba, "_PAIR_BYTES", 81 * 8 * 2000)
+    prob = _long_tracks(seed=1)
+    V = prob.R.shape[0]
+    plan = ba._buckets(prob, V)
+    assert len(plan.groups) > 1
+    rng = np.random.default_rng(2)
+    before = sf.launch_count()
+    for (_, _, s0, s1, _), order, fill in zip(plan.groups, plan.orders,
+                                              plan.fills):
+        W = rng.normal(size=(s1 - s0, 3, 9))
+        Y = rng.normal(size=(s1 - s0, 3, 9))
+        S0 = rng.normal(size=(V * V, 9, 9))
+        got = torch.from_numpy(S0.copy())
+        ba._fill_in(got, torch.from_numpy(W), torch.from_numpy(Y), order,
+                    fill)
+        want = S0.copy()
+        off = order.pair_offsets.numpy()
+        perm = order.pair_perm.numpy()
+        for run in fill.runs.numpy():
+            if off[run] == off[run + 1]:
+                break
+            sl, sm = _decode(perm[off[run]:off[run + 1]], fill.pieces)
+            acc = np.zeros((9, 9))
+            for a, b in zip(sl, sm):
+                acc += W[a].T @ Y[b]
+            want[run] -= acc
+        assert np.abs(got.numpy() - want).max() <= 1e-12 * np.abs(want).max()
+    assert sf.launch_count() == before
+
+
+def _fill_args(D=9, dtype=torch.float32, N=12, R=16, pairs=40):
+    """S, W, Y, pair_perm, pair_offsets, runs, pieces of ``schur_fill_cuda``
+    (values do not matter to the packing)."""
+    g = torch.Generator().manual_seed(D)
+    return [torch.rand((R, D, D), generator=g, dtype=dtype),
+            torch.rand((N, 3, D), generator=g, dtype=dtype),
+            torch.rand((N, 3, D), generator=g, dtype=dtype),
+            torch.arange(pairs), torch.linspace(0, pairs, R + 1).long(),
+            torch.arange(R, dtype=torch.int32), ((0, 0, 2), (8, 4, 4))]
+
+
+@pytest.mark.parametrize("D,dtype", [(9, torch.float32), (6, torch.float64),
+                                     (7, torch.float32)])
+def test_schur_fill_pack_fills_the_kernel_struct(D, dtype):
+    """Every field of ``SchurFillArgs`` as the kernel reads it: the
+    pointers, runs, pieces and their rows, D and the float64 flag."""
+    args = _fill_args(D, dtype)
+    idx, a = sf._pack(*args)
+    assert idx == -1
+    assert [a.W, a.Y, a.pair_perm, a.pair_offsets, a.runs, a.S] == [
+        x.data_ptr() for x in args[1:6] + args[:1]]
+    assert (a.num_runs, a.num_pieces, a.d, a.f64) == (
+        16, 2, D, int(dtype == torch.float64))
+    assert list(a.pieces[:6]) == [0, 0, 2, 8, 4, 4]
+    assert ctypes.sizeof(a) == 6 * 8 + 4 * 4 + 4 * 3 * sf.MAX_PIECES
+
+
+def _bad_fill_cases():
+    """(what, change to the arguments, the refusal's words)."""
+    def at(i, f):
+        return lambda a: a.__setitem__(i, f(a[i]))
+    return [
+        ("S half", at(0, lambda x: x.half()), "S must be float32 or float64"),
+        ("S not square", at(0, lambda x: x[:, :, :8]),
+         r"S must be \[R, D, D\]"),
+        ("D 10", lambda a: a.__setitem__(slice(0, 3), [
+            torch.zeros(16, 10, 10), torch.zeros(12, 3, 10),
+            torch.zeros(12, 3, 10)]), "1 to 9"),
+        ("W float64", at(1, lambda x: x.double()), "W must be torch.float32"),
+        ("Y one slot short", at(2, lambda x: x[1:]),
+         r"Y must be \(12, 3, 9\)"),
+        ("W 2-D", at(1, lambda x: x[0]), r"W must be \[N, 3, 9\]"),
+        ("Y transposed", at(2, lambda x: x.transpose(0, 1).contiguous()
+                            .transpose(0, 1)), "Y must be contiguous"),
+        ("pair_perm int32", at(3, lambda x: x.int()),
+         "pair_perm must be torch.int64"),
+        ("pair_offsets one short", at(4, lambda x: x[1:]),
+         r"pair_offsets must be \(17,\)"),
+        ("runs int64", at(5, lambda x: x.long()), "runs must be torch.int32"),
+        ("runs strided", at(5, lambda x: torch.stack([x, x], 1)[:, 0]),
+         "runs must be contiguous"),
+        ("W on meta", at(1, lambda x: x.to("meta")), "W on meta"),
+        ("not a tensor", at(2, lambda x: x.numpy()), "Y must be a tensor"),
+        ("no piece", lambda a: a.__setitem__(6, ()), "0 pieces"),
+        ("too many pieces", lambda a: a.__setitem__(
+            6, tuple((k, 0, 1) for k in range(sf.MAX_PIECES + 1))),
+         "129 pieces"),
+        ("pair0 past the pairs", lambda a: a.__setitem__(
+            6, ((0, 0, 2), (40, 4, 4))), "outside 40 pairs"),
+        ("slot0 past the slots", lambda a: a.__setitem__(
+            6, ((0, 12, 2),)), "outside 40 pairs and 12 slots"),
+        ("pieces out of order", lambda a: a.__setitem__(
+            6, ((0, 0, 2), (8, 4, 4), (8, 6, 2))), "increasing pair0"),
+    ]
+
+
+@pytest.mark.parametrize("what,change,match", _bad_fill_cases(),
+                         ids=[c[0] for c in _bad_fill_cases()])
+def test_schur_fill_pack_refuses_what_the_kernel_does_not_take(what, change,
+                                                               match):
+    args = _fill_args()
+    change(args)
+    with pytest.raises(ValueError, match=match):
+        sf._pack(*args)
+
+
+def test_schur_fill_refuses_cpu_tensors_before_any_check():
+    """A CPU S never reaches the packing or the library."""
+    before = sf.launch_count()
+    with pytest.raises(ValueError, match="CUDA"):
+        sf.schur_fill_cuda(*_fill_args())
+    with pytest.raises(ValueError, match="CUDA"):
+        sf.schur_fill_cuda(None, *_fill_args()[1:])
+    assert sf.launch_count() == before
