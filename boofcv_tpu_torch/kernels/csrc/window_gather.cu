@@ -100,10 +100,6 @@ window_gather_kernel(const float* __restrict__ imgs, long long img_stride,
 // before any window is read (a measurement probe, not on any path).
 __global__ void window_gather_empty_kernel() {}
 
-// The same under another name, so that a trace can tell its padding from
-// the probe above (see window_gather_pad_launch).
-__global__ void window_gather_pad_kernel() {}
-
 int sm_count() {
   static int count[64] = {0};
   int dev = 0;
@@ -187,15 +183,6 @@ int window_gather_empty_launch(int n, int wy, int wx, void* stream) {
   const long long total = static_cast<long long>(n) * wy * wx;
   window_gather_empty_kernel<<<static_cast<int>(blocks_for(total)), kThreads,
                                0, static_cast<cudaStream_t>(stream)>>>();
-  return static_cast<int>(cudaGetLastError());
-}
-
-// `count` one-warp launches of the pad kernel, back to back.  A profiler
-// that loses the first device events of a trace loses these when they lead
-// it; they carry no work.
-int window_gather_pad_launch(int count, void* stream) {
-  for (int i = 0; i < count; ++i)
-    window_gather_pad_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,25 +16,11 @@ raises.
 from __future__ import annotations
 
 import ctypes
-import functools
 import struct
-import threading
 
 import torch
 
-from boofcv_tpu_torch.kernels.window_gather import call_on_device
-
-_launches = 0
-
-
-def launch_count() -> int:
-    """Number of kernel launches since import or the last reset."""
-    return _launches
-
-
-def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+from boofcv_tpu_torch.kernels import _nvcc
 
 
 class _Args(ctypes.Structure):
@@ -49,34 +35,14 @@ class _Args(ctypes.Structure):
 
 
 # Filled in one struct.pack_into a launch (field order and sizes as above,
-# checked against ctypes' layout at import); each thread keeps its own, and
-# its next launch reuses it.
+# checked against ctypes' layout at import) into this thread's own struct.
 _ARGS_FMT = struct.Struct("=7Q3i2f5i")
 assert _ARGS_FMT.size == ctypes.sizeof(_Args)
-_TLS = threading.local()
+_KERNEL = _nvcc.Kernel("gn_pose", (_Args,))
+launch_count = _KERNEL.launch_count
+reset_launch_count = _KERNEL.reset_launch_count
 _F32, _F64 = torch.float32, torch.float64
 _NAMES = ("R", "t", "world", "obs", "weights")
-
-
-def _launch_args():
-    """This thread's launch struct and its ``byref``."""
-    a = getattr(_TLS, "args", None)
-    if a is None:
-        a = _Args()
-        a = _TLS.args = (a, ctypes.byref(a))
-    return a
-
-
-@functools.cache
-def _kernel_lib():
-    """Build (at first use) and load the kernel; declare its C ABI."""
-    from boofcv_tpu_torch.kernels._nvcc import load_library
-    lib = load_library("gn_pose")
-    lib.gn_pose_launch.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
-    lib.gn_pose_launch.restype = ctypes.c_int
-    lib.gn_pose_error_string.argtypes = [ctypes.c_int]
-    lib.gn_pose_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def _explain(tensors) -> None:
@@ -114,7 +80,7 @@ def _pack(R, t, world, obs, weights, iterations: int, damping: float,
           step_tol: float) -> tuple:
     """Check the arguments of :func:`gn_pose_cuda` (on any device: the
     tensors must share ``world``'s) and fill this thread's ``GnPoseArgs``
-    (:func:`_launch_args`) from them, output pointers 0.  Returns (world's
+    from them, output pointers 0.  Returns (world's
     device index, the leading shape, problems in all); raises ValueError
     on anything the kernel does not take."""
     if iterations < 0:
@@ -140,7 +106,7 @@ def _pack(R, t, world, obs, weights, iterations: int, damping: float,
     if not ok:
         _explain(tensors)
     b = lead.numel()
-    args, _ = _launch_args()
+    (args,), _ = _KERNEL.structs()
     _ARGS_FMT.pack_into(args, 0, R.data_ptr(), t.data_ptr(),
                         world.data_ptr(), obs.data_ptr(), weights.data_ptr(),
                         0, 0, b, n, iterations, damping, step_tol, *flags)
@@ -158,7 +124,6 @@ def gn_pose_cuda(R, t, world, obs, weights, iterations: int, damping: float,
     Raises on anything else and on a failed launch.
 
     Returns (R [..., 3, 3], t [..., 3]) in float64."""
-    global _launches
     if not isinstance(world, torch.Tensor) or not world.is_cuda:
         raise ValueError(f"gn_pose_cuda needs CUDA tensors, got world on "
                          f"{getattr(world, 'device', type(world).__name__)}")
@@ -169,14 +134,9 @@ def gn_pose_cuda(R, t, world, obs, weights, iterations: int, damping: float,
     R_out = out[:9 * b].view(lead + (3, 3))
     t_out = out[9 * b:].view(lead + (3,))
     if b > 0:
-        lib = _kernel_lib()
-        args, ref = _launch_args()
+        (args,), _ = _KERNEL.structs()
         base = out.data_ptr()
         args.R_out = base
         args.t_out = base + 72 * b
-        err = call_on_device(idx, lib.gn_pose_launch, ref)
-        if err != 0:
-            msg = lib.gn_pose_error_string(err).decode()
-            raise RuntimeError(f"gn_pose launch failed: {msg} ({err})")
-        _launches += 1
+        _KERNEL.launch(idx)
     return R_out, t_out

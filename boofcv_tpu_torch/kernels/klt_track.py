@@ -15,30 +15,16 @@ A build or launch failure raises.
 from __future__ import annotations
 
 import ctypes
-import functools
 import struct
-import threading
 from typing import Sequence
 
 import torch
 
-from boofcv_tpu_torch.kernels.window_gather import (call_on_device,
-                                                    plane_stride)
+from boofcv_tpu_torch.kernels import _nvcc
+from boofcv_tpu_torch.kernels.window_gather import plane_stride
 
 MAX_LEVELS = 8    # KLT_MAX_LEVELS in csrc/klt_track.cu
 MAX_RADIUS = 7    # 15x15 patch: eight pixels per lane
-
-_launches = 0
-
-
-def launch_count() -> int:
-    """Number of kernel launches since import or the last reset."""
-    return _launches
-
-
-def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
 
 
 class _Levels(ctypes.Structure):
@@ -73,8 +59,7 @@ class _Buffers(ctypes.Structure):
 
 
 # Each struct is filled in one struct.pack_into, field order and sizes as
-# above (checked against ctypes' layout at import); each thread keeps its
-# own, and its next launch reuses them.
+# above (checked against ctypes' layout at import), into this thread's own.
 _LEVELS_FMT = struct.Struct(f"=32Q{MAX_LEVELS}q{MAX_LEVELS}i{MAX_LEVELS}i"
                             f"{MAX_LEVELS}ffi")
 _PARAMS_FMT = struct.Struct("=4i3f")
@@ -82,34 +67,13 @@ _BUFFERS_FMT = struct.Struct("=6Q")
 assert _LEVELS_FMT.size == ctypes.sizeof(_Levels)
 assert _PARAMS_FMT.size == ctypes.sizeof(_Params)
 assert _BUFFERS_FMT.size == ctypes.sizeof(_Buffers)
-_TLS = threading.local()
+# -fmad=false: no products and sums contracted into FMA, so the kernel rounds
+# each one as the plain version does (csrc/klt_track.cu's build note)
+_KERNEL = _nvcc.Kernel("klt_track", (_Levels, _Params, _Buffers),
+                       flags=("-fmad=false",))
+launch_count = _KERNEL.launch_count
+reset_launch_count = _KERNEL.reset_launch_count
 _F32 = torch.float32
-
-
-def _launch_structs():
-    """This thread's (KltLevels, KltParams, KltBuffers) and their
-    ``byref``s."""
-    s = getattr(_TLS, "structs", None)
-    if s is None:
-        structs = (_Levels(), _Params(), _Buffers())
-        s = _TLS.structs = (structs,
-                            tuple(ctypes.byref(x) for x in structs))
-    return s
-
-
-@functools.cache
-def _kernel_lib():
-    """Build (at first use) and load the kernel; declare its C ABI."""
-    from boofcv_tpu_torch.kernels._nvcc import load_library
-    lib = load_library("klt_track")
-    lib.klt_track_launch.argtypes = [ctypes.POINTER(_Levels),
-                                     ctypes.POINTER(_Params),
-                                     ctypes.POINTER(_Buffers),
-                                     ctypes.c_void_p]
-    lib.klt_track_launch.restype = ctypes.c_int
-    lib.klt_track_error_string.argtypes = [ctypes.c_int]
-    lib.klt_track_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def _check(name: str, t: torch.Tensor, shape, dev: torch.device):
@@ -162,9 +126,9 @@ def _pack(pyramid, desc, grad_x, grad_y, ys, xs, scales, template_radius,
           convergence_tol) -> tuple:
     """Check the arguments of :func:`klt_track_cuda` (on any device: the
     tensors must share ``ys``'s) and fill this thread's ``KltLevels`` and
-    ``KltParams`` (:func:`_launch_structs`) from them.  Returns (ys's
-    device index, ys's shape, tracks in all); raises ValueError on
-    anything the kernel does not take."""
+    ``KltParams`` from them.  Returns (ys's device index, ys's shape,
+    tracks in all); raises ValueError on anything the kernel does not
+    take."""
     n_levels = len(scales)
     if not 1 <= n_levels <= MAX_LEVELS:
         raise ValueError(f"{n_levels} pyramid levels: the kernel takes 1 to "
@@ -220,7 +184,7 @@ def _pack(pyramid, desc, grad_x, grad_y, ys, xs, scales, template_radius,
         _explain(pyramid, desc, grad_x, grad_y, ys, xs, n_levels, p)
     ratio = [scales[l] / scales[l - 1] if 0 < l < n_levels else 1.0
              for l in range(MAX_LEVELS)]
-    (lv, prm, _), _ = _launch_structs()
+    (lv, prm, _), _ = _KERNEL.structs()
     _LEVELS_FMT.pack_into(lv, 0, *ptrs, *geo, *ratio, float(scales[-1]),
                           n_levels)
     n = ys.numel()
@@ -251,7 +215,6 @@ def klt_track_cuda(pyramid: Sequence[torch.Tensor],
     the int32 fault code (the worst over the levels) and the int32 count of
     patch evaluations each track ran, summed over the levels (what the
     kernel's arithmetic bound is counted from)."""
-    global _launches
     if not isinstance(ys, torch.Tensor) or not ys.is_cuda:
         raise ValueError(f"klt_track_cuda needs CUDA tensors, got ys on "
                          f"{getattr(ys, 'device', type(ys).__name__)}")
@@ -263,14 +226,9 @@ def klt_track_cuda(pyramid: Sequence[torch.Tensor],
     out = torch.empty((4,) + tuple(shape), dtype=_F32, device=ys.device)
     out_y, out_x, fault, evals = out.unbind(0)
     if n > 0:
-        lib = _kernel_lib()
         base = out.data_ptr()
-        (_, _, buf), refs = _launch_structs()
+        (_, _, buf), _ = _KERNEL.structs()
         _BUFFERS_FMT.pack_into(buf, 0, ys.data_ptr(), xs.data_ptr(), base,
                                base + 4 * n, base + 8 * n, base + 12 * n)
-        err = call_on_device(idx, lib.klt_track_launch, *refs)
-        if err != 0:
-            msg = lib.klt_track_error_string(err).decode()
-            raise RuntimeError(f"klt_track launch failed: {msg} ({err})")
-        _launches += 1
+        _KERNEL.launch(idx)
     return out_y, out_x, fault.view(torch.int32), evals.view(torch.int32)

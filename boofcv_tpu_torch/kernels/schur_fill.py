@@ -15,26 +15,14 @@ failure raises.
 from __future__ import annotations
 
 import ctypes
-import functools
+import struct
 
 import torch
 
-from boofcv_tpu_torch.kernels.window_gather import call_on_device
+from boofcv_tpu_torch.kernels import _nvcc
 
 MAX_PIECES = 128             # SCHUR_FILL_MAX_PIECES of csrc/schur_fill.cu
 _INT32 = 2 ** 31
-
-_launches = 0
-
-
-def launch_count() -> int:
-    """Number of kernel launches since import or the last reset."""
-    return _launches
-
-
-def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
 
 
 class _Args(ctypes.Structure):
@@ -46,16 +34,15 @@ class _Args(ctypes.Structure):
         ("pieces", ctypes.c_int * (3 * MAX_PIECES))]
 
 
-@functools.cache
-def _kernel_lib():
-    """Build (at first use) and load the kernel; declare its C ABI."""
-    from boofcv_tpu_torch.kernels._nvcc import load_library
-    lib = load_library("schur_fill")
-    lib.schur_fill_launch.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
-    lib.schur_fill_launch.restype = ctypes.c_int
-    lib.schur_fill_error_string.argtypes = [ctypes.c_int]
-    lib.schur_fill_error_string.restype = ctypes.c_char_p
-    return lib
+# The fields before ``pieces`` are filled in one struct.pack_into a launch
+# (order and sizes as above, checked against ctypes' layout at import) into
+# this thread's own struct; the kernel reads ``num_pieces`` rows of
+# ``pieces``, so rows left from an earlier launch are never read.
+_HEAD_FMT = struct.Struct("=6Q4i")
+assert _HEAD_FMT.size == _Args.pieces.offset
+_KERNEL = _nvcc.Kernel("schur_fill", (_Args,))
+launch_count = _KERNEL.launch_count
+reset_launch_count = _KERNEL.reset_launch_count
 
 
 def _check(name, x, dtype, shape, device):
@@ -73,9 +60,9 @@ def _check(name, x, dtype, shape, device):
 
 def _pack(S, W, Y, pair_perm, pair_offsets, runs, pieces) -> tuple:
     """Check the arguments of :func:`schur_fill_cuda` (on any device: the
-    tensors must share S's) and fill a ``SchurFillArgs`` from them.
-    Returns (S's device index, the struct); raises ValueError on anything
-    the kernel does not take."""
+    tensors must share S's) and fill this thread's ``SchurFillArgs`` from
+    them.  Returns (S's device index, the runs R); raises ValueError on
+    anything the kernel does not take."""
     if not isinstance(S, torch.Tensor) or S.dim() != 3 \
             or S.shape[1] != S.shape[2]:
         raise ValueError(f"S must be [R, D, D], got "
@@ -116,11 +103,13 @@ def _pack(S, W, Y, pair_perm, pair_offsets, runs, pieces) -> tuple:
         flat += (pair0, slot0, width)
     if any(a >= b for a, b in zip(flat[0::3], flat[3::3])):
         raise ValueError("pieces must be in increasing pair0")
-    args = _Args(W.data_ptr(), Y.data_ptr(), pair_perm.data_ptr(),
-                 pair_offsets.data_ptr(), runs.data_ptr(), S.data_ptr(),
-                 R, len(pieces), D, int(S.dtype == torch.float64))
+    (args,), _ = _KERNEL.structs()
+    _HEAD_FMT.pack_into(args, 0, W.data_ptr(), Y.data_ptr(),
+                        pair_perm.data_ptr(), pair_offsets.data_ptr(),
+                        runs.data_ptr(), S.data_ptr(), R, len(pieces), D,
+                        int(S.dtype == torch.float64))
     args.pieces[:len(flat)] = flat
-    return S.get_device(), args
+    return S.get_device(), R
 
 
 def schur_fill_cuda(S, W, Y, pair_perm, pair_offsets, runs, pieces) -> None:
@@ -134,16 +123,9 @@ def schur_fill_cuda(S, W, Y, pair_perm, pair_offsets, runs, pieces) -> None:
     [N, 3, D]: float32 or float64 alike, contiguous, on one CUDA device;
     ``runs`` [R] int32 the runs to walk, the non-empty ones first.  S is
     written in place.  Raises on anything else and on a failed launch."""
-    global _launches
     if not isinstance(S, torch.Tensor) or not S.is_cuda:
         raise ValueError(f"schur_fill_cuda needs CUDA tensors, got S on "
                          f"{getattr(S, 'device', type(S).__name__)}")
-    idx, args = _pack(S, W, Y, pair_perm, pair_offsets, runs, pieces)
-    if args.num_runs == 0:
-        return
-    lib = _kernel_lib()
-    err = call_on_device(idx, lib.schur_fill_launch, ctypes.byref(args))
-    if err != 0:
-        msg = lib.schur_fill_error_string(err).decode()
-        raise RuntimeError(f"schur_fill launch failed: {msg} ({err})")
-    _launches += 1
+    idx, R = _pack(S, W, Y, pair_perm, pair_offsets, runs, pieces)
+    if R > 0:
+        _KERNEL.launch(idx)

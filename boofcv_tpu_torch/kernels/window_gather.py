@@ -15,25 +15,13 @@ failure raises.
 from __future__ import annotations
 
 import ctypes
-import functools
 import struct
-import threading
 
 import torch
 
+from boofcv_tpu_torch.kernels import _nvcc
+
 _SUBLANES = 8   # row alignment of the KLT window origins (see below)
-
-_launches = 0
-
-
-def launch_count() -> int:
-    """Number of kernel launches since import or the last reset."""
-    return _launches
-
-
-def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
 
 
 def gather_windows_reference(image: torch.Tensor, oy: torch.Tensor,
@@ -66,37 +54,12 @@ class _Args(ctypes.Structure):
 
 
 # Filled in one struct.pack_into a launch (field order and sizes as above,
-# checked against ctypes' layout at import); each thread keeps its own, and
-# its next launch reuses it.
+# checked against ctypes' layout at import) into this thread's own struct.
 _ARGS_FMT = struct.Struct("=QqiiQQiiiiQ")
 assert _ARGS_FMT.size == ctypes.sizeof(_Args)
-_TLS = threading.local()
-
-
-def _launch_args():
-    """This thread's launch struct and its ``byref``."""
-    a = getattr(_TLS, "args", None)
-    if a is None:
-        a = _Args()
-        a = _TLS.args = (a, ctypes.byref(a))
-    return a
-
-
-@functools.cache
-def _kernel_lib():
-    """Build (at first use) and load the kernel; declare its C ABI."""
-    from boofcv_tpu_torch.kernels._nvcc import load_library
-    lib = load_library("window_gather")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.window_gather_launch.argtypes = [ctypes.POINTER(_Args), vp]
-    lib.window_gather_launch.restype = ci
-    lib.window_gather_empty_launch.argtypes = [ci, ci, ci, vp]
-    lib.window_gather_empty_launch.restype = ci
-    lib.window_gather_pad_launch.argtypes = [ci, vp]
-    lib.window_gather_pad_launch.restype = ci
-    lib.window_gather_error_string.argtypes = [ci]
-    lib.window_gather_error_string.restype = ctypes.c_char_p
-    return lib
+_KERNEL = _nvcc.Kernel("window_gather", (_Args,))
+launch_count = _KERNEL.launch_count
+reset_launch_count = _KERNEL.reset_launch_count
 
 
 def plane_stride(name: str, image: torch.Tensor) -> int:
@@ -157,23 +120,6 @@ def _explain(image: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
     raise ValueError("gather_windows_cuda: inputs refused")  # not reached
 
 
-def _raw_stream(index: int) -> int:
-    """The current CUDA stream of device ``index`` as an integer."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is not None:
-        return raw(index)
-    return torch.cuda.current_stream(index).cuda_stream
-
-
-def call_on_device(index: int, launch, *args) -> int:
-    """``launch(*args, stream)``, a C launcher, with CUDA device ``index``
-    current and its current stream; returns what the launcher returns."""
-    if torch.cuda.current_device() == index:
-        return launch(*args, _raw_stream(index))
-    with torch.cuda.device(index):
-        return launch(*args, _raw_stream(index))
-
-
 def _gather_geometry(image: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
                      wy: int, wx: int) -> tuple:
     """Check the arguments of :func:`gather_windows_cuda` (on any device:
@@ -210,7 +156,6 @@ def gather_windows_cuda(image: torch.Tensor, oy: torch.Tensor,
     int32, or [B, h, w] (a contiguous stack, or one frame expanded over B)
     with oy, ox: [B, N]; origins contiguous; all on one CUDA device.  Raises
     on anything else and on a failed launch."""
-    global _launches
     if not image.is_cuda:
         raise ValueError(f"gather_windows_cuda needs CUDA tensors, got "
                          f"image on {image.device}")
@@ -219,28 +164,13 @@ def gather_windows_cuda(image: torch.Tensor, oy: torch.Tensor,
     n = oy.numel()
     if n == 0:
         return out
-    lib = _kernel_lib()
     stride, h, w, per_image = geometry
-    args, ref = _launch_args()
+    (args,), _ = _KERNEL.structs()
     _ARGS_FMT.pack_into(args, 0, image.data_ptr(), stride, h, w,
                         oy.data_ptr(), ox.data_ptr(), n, per_image, wy, wx,
                         out.data_ptr())
-    err = call_on_device(idx, lib.window_gather_launch, ref)
-    if err != 0:
-        msg = lib.window_gather_error_string(err).decode()
-        raise RuntimeError(f"window_gather launch failed: {msg} ({err})")
-    _launches += 1
+    _KERNEL.launch(idx)
     return out
-
-
-def _launch_probe(device, what: str, launch) -> None:
-    lib = _kernel_lib()
-    device = torch.device(device)
-    with torch.cuda.device(device):
-        err = launch(lib, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        msg = lib.window_gather_error_string(err).decode()
-        raise RuntimeError(f"{what} failed: {msg} ({err})")
 
 
 def launch_empty(n: int, wy: int, wx: int, device) -> None:
@@ -248,17 +178,13 @@ def launch_empty(n: int, wy: int, wx: int, device) -> None:
     ``n`` windows of wy x wx get: what one such launch costs the device
     whatever it reads.  A measurement probe; it is not counted as a launch
     of the gather."""
-    _launch_probe(device, "empty launch", lambda lib, stream:
-                  lib.window_gather_empty_launch(n, wy, wx, stream))
-
-
-def launch_pads(count: int, device) -> None:
-    """``count`` one-warp launches of ``window_gather_pad_kernel``, which
-    returns at once: padding for the head of a profiler trace, told from
-    every other kernel by its name.  Not counted as launches of the
-    gather."""
-    _launch_probe(device, "pad launch", lambda lib, stream:
-                  lib.window_gather_pad_launch(count, stream))
+    fn = _KERNEL.library().window_gather_empty_launch
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = _nvcc.call_on_device(
+        torch.cuda._get_device_index(device, optional=True), fn, n, wy, wx)
+    if err:
+        _KERNEL.fail(err, "empty launch")
 
 
 def gather_windows(image: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,

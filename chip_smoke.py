@@ -369,7 +369,8 @@ def _trace(run, attempts: int = 5, cpu: bool = True):
     nothing, so what counts is the time since the trace's first launch).  A
     trace of one or two kernels then comes back empty.  So every trace is
     led by launches of a kernel that returns at once
-    (``window_gather_pad_kernel``): a few, then ``PROFILER_LEAD_S`` of
+    (``torch.cuda._sleep(1)``, kernel ``spin_kernel``, as
+    ``perfbench/harness/trace.py`` pads): a few, then ``PROFILER_LEAD_S`` of
     waiting, then ``PROFILER_PADS`` more, then ``run()``.  What is lost is
     padding as a rule: while one pad is seen, everything after the pads was
     seen.  A trace that shows no pad, or the pads and nothing after them
@@ -377,21 +378,24 @@ def _trace(run, attempts: int = 5, cpu: bool = True):
     the pads.  The pads are left out of the events returned.  ``cpu=False``
     traces the device alone (no operator events: a call of 10^5 launches
     costs half the time to trace)."""
-    from boofcv_tpu_torch.kernels import window_gather as wg
+    def launch_pads(count):
+        for _ in range(count):
+            torch.cuda._sleep(1)
+
     lead, pads = PROFILER_LEAD_S, PROFILER_PADS
     for attempt in range(attempts):
         torch.cuda.synchronize()
         activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
                                                 if cpu else [])
         with profile(activities=activities) as prof:
-            wg.launch_pads(8, "cuda")           # the current device
+            launch_pads(8)
             torch.cuda.synchronize()
             time.sleep(lead)
-            wg.launch_pads(pads, "cuda")
+            launch_pads(pads)
             run()
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type.name == "CUDA"]
-        kept = [e for e in events if "window_gather_pad_kernel" not in e.name]
+        kept = [e for e in events if "spin_kernel" not in e.name]
         if kept and len(kept) < len(events):
             return kept, prof
         # pads seen and nothing after them: the profiler dropped the call's
@@ -527,7 +531,7 @@ def phase_build():
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(5) as pool:
         futures = [pool.submit(_timed_native_build)] + [
-            pool.submit(mod._kernel_lib)
+            pool.submit(mod._KERNEL.library)
             for mod in _kernel_modules().values()]
         for f in futures:
             f.result()
@@ -7119,10 +7123,9 @@ class _SweepTree:
             import boofcv_tpu_torch.kernels._nvcc as nv
             import boofcv_tpu_torch.kernels.klt_track as kt
             import boofcv_tpu_torch.kernels.window_gather as wg
-            nv.EXTRA_FLAGS = {**nv.EXTRA_FLAGS, "klt_track":
-                              nv.EXTRA_FLAGS["klt_track"] + tuple(defines)}
-            kt._kernel_lib()   # cached: built while this tree is imported
-            wg._kernel_lib()
+            kt._KERNEL.flags += tuple(defines)
+            kt._KERNEL.library()   # kept: built while this tree is imported
+            wg._KERNEL.library()
         finally:
             sys.path.pop(0)
             for m in _KERNEL_MODULES:
@@ -7344,7 +7347,7 @@ def _sweep_gn_pose(dev):
     from boofcv_tpu_torch.geo import pnp
     from boofcv_tpu_torch.kernels import _nvcc
     from boofcv_tpu_torch.kernels import gn_pose as gp
-    gp._kernel_lib()
+    gp._KERNEL.library()
     rec = _nvcc.build_record("gn_pose")
     print(f"sweep: gn_pose built={rec['built']} nvcc_s={rec['build_s']:.3f}")
     for fn, regs, stores, loads, stack in ptxas_summary(rec["ptxas"]):
@@ -7407,7 +7410,7 @@ def _sweep_schur_fill(dev):
     from boofcv_tpu_torch.geo import ba
     from boofcv_tpu_torch.kernels import _nvcc
     from boofcv_tpu_torch.kernels import schur_fill as sf
-    sf._kernel_lib()
+    sf._KERNEL.library()
     rec = _nvcc.build_record("schur_fill")
     print(f"sweep: schur_fill built={rec['built']} "
           f"nvcc_s={rec['build_s']:.3f}")

@@ -453,7 +453,7 @@ def test_klt_step_quotients_are_float_divisions(cuda):
     n = a.size
     with np.errstate(over="ignore", under="ignore"):
         want = np.concatenate([a / b, a / b, c / b])
-    lib = kt._kernel_lib()
+    lib = kt._KERNEL.library()
     fn = lib.klt_quotient_test_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int

@@ -6,15 +6,21 @@ pass of cheap checks that fills the C structs (or the launch arguments),
 and on anything refused the detailed
 checks that name it.  They take tensors on any device (the kernels
 themselves only run on the card, see test_torch_cuda.py), so what the
-kernel is handed, and every refusal's message, is checked here."""
+kernel is handed, and every refusal's message, is checked here; so is the
+launch layer under the wrappers (``kernels/_nvcc.Kernel``), on a stub
+library."""
 
 import ctypes
+import os
+import subprocess
+import types
 
 import numpy as np
 import pytest
 import torch
 
 from boofcv_tpu_torch.geo import ba, pnp
+from boofcv_tpu_torch.kernels import _nvcc
 from boofcv_tpu_torch.kernels import gn_pose as gp
 from boofcv_tpu_torch.kernels import klt_track as kt
 from boofcv_tpu_torch.kernels import schur_fill as sf
@@ -49,7 +55,7 @@ def test_klt_pack_fills_the_kernel_structs(lead, shared):
     pyr, desc, gx, gy, ys = args[:5]
     idx, shape, n = kt._pack(*args)
     assert (idx, tuple(shape), n) == (-1, tuple(ys.shape), ys.numel())
-    (lv, prm, _), _ = kt._launch_structs()
+    (lv, prm, _), _ = kt._KERNEL.structs()
     for l, (h, w) in enumerate(SHAPES):
         assert lv.img[l] == pyr[l].data_ptr()
         assert (lv.desc[l], lv.gx[l], lv.gy[l]) == (
@@ -111,7 +117,7 @@ def test_klt_pack_takes_every_radius_and_a_strided_stack_not(radius):
     args = _klt_args(p=2 * radius + 1)
     args[7] = radius
     assert kt._pack(*args) == (-1, torch.Size([16]), 16)
-    assert kt._launch_structs()[0][1].radius == radius
+    assert kt._KERNEL.structs()[0][1].radius == radius
     args = _klt_args((4,), p=2 * radius + 1)
     args[7] = radius
     args[0] = [p.repeat(2, 1, 1)[::2] for p in args[0]]
@@ -170,20 +176,33 @@ def test_gather_geometry_refuses_what_the_kernel_does_not_take(what, args,
         wg._gather_geometry(*args)
 
 
-def test_wrappers_refuse_cpu_tensors_before_any_check():
-    """A CPU tensor never reaches the packing or the library."""
-    args = _klt_args()
-    before = kt.launch_count(), wg.launch_count()
-    with pytest.raises(ValueError, match="CUDA"):
-        kt.klt_track_cuda(*args)
+def _cpu_calls(name):
+    """Calls of kernel ``name``'s public function on CPU tensors (and, for
+    ``schur_fill``, on no tensor at all)."""
     o = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(ValueError, match="CUDA"):
-        wg.gather_windows_cuda(torch.zeros(8, 8), o, o, 3, 3)
-    before += (gp.launch_count(),)
-    with pytest.raises(ValueError, match="CUDA"):
-        gp.gn_pose_cuda(*_gn_args(), 10, 1e-9, 1e-6)
-    assert (kt.launch_count(), wg.launch_count(),
-            gp.launch_count()) == before
+    return {
+        "klt_track": [lambda: kt.klt_track_cuda(*_klt_args())],
+        "window_gather": [lambda: wg.gather_windows_cuda(torch.zeros(8, 8),
+                                                         o, o, 3, 3)],
+        "gn_pose": [lambda: gp.gn_pose_cuda(*_gn_args(), 10, 1e-9, 1e-6)],
+        "schur_fill": [lambda: sf.schur_fill_cuda(*_fill_args()),
+                       lambda: sf.schur_fill_cuda(None, *_fill_args()[1:])],
+    }[name]
+
+
+KERNELS = {"klt_track": kt, "window_gather": wg, "gn_pose": gp,
+           "schur_fill": sf}
+
+
+@pytest.mark.parametrize("name", list(KERNELS))
+def test_wrappers_refuse_cpu_tensors_before_any_check(name):
+    """A CPU tensor never reaches the packing or the library."""
+    mod = KERNELS[name]
+    before = mod.launch_count()
+    for call in _cpu_calls(name):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert mod.launch_count() == before
 
 
 def test_each_thread_packs_its_own_structs():
@@ -197,10 +216,11 @@ def test_each_thread_packs_its_own_structs():
     def worker(n):
         args = _klt_args(n=n)
         gn = _gn_args(n=n)
+        fill = _fill_args(R=n)
         try:
             for _ in range(200):
                 kt._pack(*args)
-                (lv, prm, _), _ = kt._launch_structs()
+                (lv, prm, _), _ = kt._KERNEL.structs()
                 if prm.n != n or lv.desc[0] != args[1][0].data_ptr():
                     errors.append(n)
                 geometry = wg._gather_geometry(args[0][0], args[4].int(),
@@ -208,9 +228,13 @@ def test_each_thread_packs_its_own_structs():
                 if geometry != ((0, 60, 80, n), (n, 7, n)):
                     errors.append(-n)
                 gp._pack(*gn, n, 1e-9, 1e-6)
-                if (gp._launch_args()[0].iterations != n
-                        or gp._launch_args()[0].world != gn[2].data_ptr()):
+                (a,), _ = gp._KERNEL.structs()
+                if a.iterations != n or a.world != gn[2].data_ptr():
                     errors.append(1000 + n)
+                sf._pack(*fill)
+                (a,), _ = sf._KERNEL.structs()
+                if a.num_runs != n or a.S != fill[0].data_ptr():
+                    errors.append(2000 + n)
         except Exception as e:          # noqa: BLE001 - reported below
             errors.append(repr(e))
 
@@ -255,7 +279,7 @@ def test_gn_pose_pack_fills_the_kernel_struct(lead, dtypes):
     args = _gn_args(lead, dtypes=dtypes)
     idx, shape, b = gp._pack(*args, 50, 1e-9, 1e-6)
     assert (idx, tuple(shape), b) == (-1, lead, int(np.prod(lead)))
-    a, _ = gp._launch_args()
+    (a,), _ = gp._KERNEL.structs()
     assert [a.R, a.t, a.world, a.obs, a.wgt] == [x.data_ptr() for x in args]
     assert (a.R_out, a.t_out) == (None, None)
     assert (a.b, a.n, a.iterations) == (b, 7, 50)
@@ -537,14 +561,15 @@ def test_schur_fill_pack_fills_the_kernel_struct(D, dtype):
     """Every field of ``SchurFillArgs`` as the kernel reads it: the
     pointers, runs, pieces and their rows, D and the float64 flag."""
     args = _fill_args(D, dtype)
-    idx, a = sf._pack(*args)
-    assert idx == -1
+    assert sf._pack(*args) == (-1, 16)
+    (a,), _ = sf._KERNEL.structs()
     assert [a.W, a.Y, a.pair_perm, a.pair_offsets, a.runs, a.S] == [
         x.data_ptr() for x in args[1:6] + args[:1]]
     assert (a.num_runs, a.num_pieces, a.d, a.f64) == (
         16, 2, D, int(dtype == torch.float64))
     assert list(a.pieces[:6]) == [0, 0, 2, 8, 4, 4]
     assert ctypes.sizeof(a) == 6 * 8 + 4 * 4 + 4 * 3 * sf.MAX_PIECES
+    assert sf._HEAD_FMT.size == sf._Args.pieces.offset
 
 
 def _bad_fill_cases():
@@ -596,11 +621,150 @@ def test_schur_fill_pack_refuses_what_the_kernel_does_not_take(what, change,
         sf._pack(*args)
 
 
-def test_schur_fill_refuses_cpu_tensors_before_any_check():
-    """A CPU S never reaches the packing or the library."""
-    before = sf.launch_count()
-    with pytest.raises(ValueError, match="CUDA"):
-        sf.schur_fill_cuda(*_fill_args())
-    with pytest.raises(ValueError, match="CUDA"):
-        sf.schur_fill_cuda(None, *_fill_args()[1:])
-    assert sf.launch_count() == before
+# --- the launch layer under the wrappers (kernels/_nvcc.Kernel) ----------
+
+
+class _StubLibrary:
+    """Stands in for a kernel's loaded library: ``<name>_launch`` records
+    its arguments and returns ``err``; ``<name>_error_string`` names the
+    code as the kernel's own would."""
+
+    def __init__(self, name, err=0):
+        self.calls = []
+
+        def launch(*args):
+            self.calls.append(args)
+            return err
+
+        def error_string(code):
+            return f"{name} refused it ({code})".encode()
+
+        setattr(self, f"{name}_launch", launch)
+        setattr(self, f"{name}_error_string", error_string)
+        setattr(self, f"{name}_empty_launch", launch)
+
+
+def _stub_kernel(monkeypatch, mod, err=0):
+    """Load ``mod``'s kernel as a stub library and launch through a fake
+    device call that hands the launcher stream 77; every cached piece of
+    the kernel is put back afterwards."""
+    k = mod._KERNEL
+    for attr in ("_lib", "_launcher", "_launches"):
+        monkeypatch.setattr(k, attr, getattr(k, attr))
+    k._lib = k._launcher = None
+    lib = _StubLibrary(k.name, err)
+    loads = []
+
+    def load(name, flags=()):
+        loads.append((name, tuple(flags)))
+        return lib
+    monkeypatch.setattr(_nvcc, "load_library", load)
+    monkeypatch.setattr(_nvcc, "call_on_device",
+                        lambda index, fn, *args: fn(*args, 77))
+    return k, lib, loads
+
+
+@pytest.mark.parametrize("err", [0, 700])
+@pytest.mark.parametrize("name", list(KERNELS))
+def test_launch_raises_the_kernels_message_and_counts_success(
+        monkeypatch, name, err):
+    """A launch hands the launcher this thread's structs and the stream,
+    in the C ABI the layer declared; a nonzero return raises with the
+    kernel's own message and is not counted, a zero return counts once."""
+    mod = KERNELS[name]
+    k, lib, loads = _stub_kernel(monkeypatch, mod, err)
+    before = mod.launch_count()
+    if err:
+        with pytest.raises(RuntimeError,
+                           match=rf"^{name} launch failed: {name} refused it "
+                                 rf"\(700\) \(700\)$"):
+            k.launch(0)
+    else:
+        k.launch(0)
+    assert mod.launch_count() == before + (err == 0)
+    assert loads == [(name, k.flags)]
+    (call,) = lib.calls
+    objs, refs = k.structs()
+    assert len(call) == len(objs) + 1 and call[-1] == 77
+    assert [ctypes.addressof(r._obj) for r in call[:-1]] == [
+        ctypes.addressof(o) for o in objs]
+    fn = getattr(lib, f"{name}_launch")
+    assert fn.argtypes == [ctypes.POINTER(type(o)) for o in objs] + [
+        ctypes.c_void_p]
+    assert fn.restype is ctypes.c_int
+    assert getattr(lib, f"{name}_error_string").restype is ctypes.c_char_p
+    mod.reset_launch_count()
+    assert mod.launch_count() == 0
+
+
+def test_the_empty_probe_is_not_counted(monkeypatch):
+    """``launch_empty`` runs the probe on the device's stream and counts
+    nothing; a failed probe raises with the kernel's message."""
+    monkeypatch.setattr(torch.cuda, "_get_device_index",
+                        lambda device, optional=False: 0)
+    k, lib, _ = _stub_kernel(monkeypatch, wg)
+    before = wg.launch_count()
+    wg.launch_empty(512, 7, 102, "cuda")
+    assert lib.calls == [(512, 7, 102, 77)]
+    assert wg.launch_count() == before
+    k, lib, _ = _stub_kernel(monkeypatch, wg, err=98)
+    with pytest.raises(RuntimeError, match="^empty launch failed: "
+                                           "window_gather refused it"):
+        wg.launch_empty(512, 7, 102, "cuda")
+    assert wg.launch_count() == before
+
+
+def test_threads_racing_to_first_use_load_once(monkeypatch):
+    """Threads that reach a kernel's first use together (``chip_smoke``
+    builds every kernel from a pool) build and declare it once, and each
+    gets the same library."""
+    import threading
+    import time
+    k, lib, loads = _stub_kernel(monkeypatch, gp)
+    slow = _nvcc.load_library
+
+    def load(name, flags=()):
+        time.sleep(0.05)
+        return slow(name, flags)
+    monkeypatch.setattr(_nvcc, "load_library", load)
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(k.library()))
+               for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert len(loads) == 1 and got == [lib] * 8
+
+
+@pytest.mark.parametrize("name", list(KERNELS))
+def test_nvcc_command_carries_each_kernels_own_flags(monkeypatch, tmp_path,
+                                                     name):
+    """The nvcc command a wrapper's first use runs is the shared flags and
+    then the module's own: ``-fmad=false`` for ``klt_track`` alone.  The
+    builder itself names no kernel."""
+    k = KERNELS[name]._KERNEL
+    monkeypatch.setattr(k, "_lib", None)
+    monkeypatch.setattr(k, "_launcher", None)
+    monkeypatch.setattr(_nvcc, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_nvcc, "_LIBS", {})
+    monkeypatch.setattr(_nvcc, "_find_nvcc", lambda: "nvcc")
+    commands = []
+
+    def run(cmd, **kw):
+        commands.append(cmd)
+        return subprocess.CompletedProcess(cmd, 1, "", "stub nvcc")
+    monkeypatch.setattr(_nvcc, "subprocess",
+                        types.SimpleNamespace(run=run))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        k.library()
+    (cmd,) = commands
+    want = ("-fmad=false",) if name == "klt_track" else ()
+    assert cmd[1:1 + len(_nvcc.NVCC_FLAGS)] == list(_nvcc.NVCC_FLAGS)
+    assert tuple(cmd[1 + len(_nvcc.NVCC_FLAGS):-3]) == want
+    assert cmd[-1].endswith(f"csrc/{name}.cu")
+    assert k._lib is None and os.listdir(tmp_path) == []
+    with open(_nvcc.__file__) as f:
+        source = f.read()
+    assert not any(n in source for n in KERNELS)
