@@ -15,6 +15,11 @@ packages the same hypotheses.
 B independent problems go in one pass with a leading stream axis on every
 tensor ([B, N, ...] points, [B, N] masks, [B, K, S] index sets) and one
 generator per stream; every reduction is per stream.
+
+On the card, ``ransac_pnp``'s Grunert bank (solve, score, select) is one
+launch of ``kernels/pnp_bank``; CPU tensors, and every other estimator
+here, take the generic :func:`ransac`.  :func:`bank_routes` counts which
+route each ``ransac_pnp`` call took.
 """
 
 from __future__ import annotations
@@ -23,7 +28,25 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from boofcv_tpu_torch.kernels import pnp_bank
 from boofcv_tpu_torch.utils.profiling import span
+
+# ransac_pnp calls since import or the last reset_bank_routes, by the route
+# their bank took: "kernel" (one pnp_bank launch) or "plain" (ransac)
+_routes = {"kernel": 0, "plain": 0}
+
+
+def bank_routes() -> dict:
+    """``{"kernel": calls, "plain": calls}``: the ``ransac_pnp`` calls since
+    import or :func:`reset_bank_routes` whose bank was one launch of
+    ``kernels/pnp_bank`` (Grunert on a CUDA tensor) or the generic
+    :func:`ransac` (a CPU tensor, or Finsterwalder)."""
+    return dict(_routes)
+
+
+def reset_bank_routes() -> None:
+    """Set both counts of :func:`bank_routes` to 0."""
+    _routes.update(kernel=0, plain=0)
 
 
 class RansacResult(NamedTuple):
@@ -314,13 +337,48 @@ def ransac_pnp(generator: Optional[torch.Generator], world: torch.Tensor,
 
     obs in normalized image coords.  Returns (RansacResult, (R, t)).  B
     streams: world [B, N, 3], obs [B, N, 2], valid_mask [B, N], a sequence
-    of B generators (or idx [B, K, 3]); every result gains the [B] axis."""
+    of B generators (or idx [B, K, 3]); every result gains the [B] axis.
+    On a CUDA tensor the Grunert bank (solve, score, select) is one launch
+    of ``kernels/pnp_bank`` whatever B is; a CPU tensor, or
+    Finsterwalder, takes the generic :func:`ransac`."""
+    from boofcv_tpu_torch.geo import pnp
+
+    if p3p not in ("grunert", "finsterwalder"):
+        raise ValueError(f"p3p is 'grunert' or 'finsterwalder', not {p3p!r}")
+
+    with span("ransac"):
+        if p3p == "grunert" and world.is_cuda:
+            result = _kernel_bank(generator, world, obs, num_hypotheses,
+                                  inlier_threshold, valid_mask, idx)
+            _routes["kernel"] += 1
+        else:
+            result = _plain_bank(generator, world, obs, num_hypotheses,
+                                 inlier_threshold, valid_mask, p3p, idx)
+            _routes["plain"] += 1
+        R, t, _ = result.model
+        # masked rows must be finite: inf * 0 = NaN would poison the normal
+        # equations, so they are replaced rather than only zero-weighted
+        mask = result.inliers
+        w64 = torch.where(mask[..., None], world.to(torch.float64), 1.0)
+        o64 = torch.where(mask[..., None], obs.to(torch.float64), 0.0)
+        Rr, tr = pnp.gauss_newton_pose(R, t, w64, o64,
+                                       weights=mask.to(torch.float64),
+                                       iterations=refine_iterations,
+                                       damping=1e-9,
+                                       polish_iterations=polish_iterations)
+    return result, (Rr, tr)
+
+
+def _plain_bank(generator, world, obs, num_hypotheses: int,
+                inlier_threshold: float, valid_mask, p3p: str,
+                idx) -> RansacResult:
+    """``ransac_pnp``'s bank on the generic :func:`ransac`: P3P (float32,
+    four solutions a sample) and K x N float32 reprojection scoring.  The
+    plain version of ``kernels/pnp_bank`` for Grunert; any device."""
     from boofcv_tpu_torch.geo import pnp
 
     minimal = {"grunert": pnp.p3p_grunert,
-               "finsterwalder": pnp.p3p_finsterwalder}.get(p3p)
-    if minimal is None:
-        raise ValueError(f"p3p is 'grunert' or 'finsterwalder', not {p3p!r}")
+               "finsterwalder": pnp.p3p_finsterwalder}[p3p]
 
     def solver(sample):
         w, o = sample
@@ -335,21 +393,41 @@ def ransac_pnp(generator: Optional[torch.Generator], world: torch.Tensor,
             o.to(torch.float32)[..., None, :, :])
         return torch.where(ok[..., None], err, float("inf"))
 
-    with span("ransac"):
-        result = ransac(generator, (world, obs), solver, scorer,
-                        sample_size=3, num_hypotheses=num_hypotheses,
-                        inlier_threshold=inlier_threshold,
-                        valid_mask=valid_mask, solutions_per_sample=4,
-                        idx=idx)
-        R, t, _ = result.model
-        # masked rows must be finite: inf * 0 = NaN would poison the normal
-        # equations, so they are replaced rather than only zero-weighted
-        mask = result.inliers
-        w64 = torch.where(mask[..., None], world.to(torch.float64), 1.0)
-        o64 = torch.where(mask[..., None], obs.to(torch.float64), 0.0)
-        Rr, tr = pnp.gauss_newton_pose(R, t, w64, o64,
-                                       weights=mask.to(torch.float64),
-                                       iterations=refine_iterations,
-                                       damping=1e-9,
-                                       polish_iterations=polish_iterations)
-    return result, (Rr, tr)
+    return ransac(generator, (world, obs), solver, scorer, sample_size=3,
+                  num_hypotheses=num_hypotheses,
+                  inlier_threshold=inlier_threshold, valid_mask=valid_mask,
+                  solutions_per_sample=4, idx=idx)
+
+
+def _kernel_bank(generator, world, obs, num_hypotheses: int,
+                 inlier_threshold: float, valid_mask, idx) -> RansacResult:
+    """``ransac_pnp``'s Grunert bank on the card: the index sets drawn as
+    :func:`ransac` draws them (or the caller's), then one launch of
+    ``kernels/pnp_bank`` for every stream.  Inputs are read as the plain
+    route reads them: real dtypes other than float32 and float64 as
+    float32, a mask broadcast to the points.  A caller's index sets are
+    checked where that reads nothing back from the card: on the host, an
+    index outside [0, N) is refused; on the card, it makes its sample
+    unusable in the kernel."""
+    n = world.shape[-2]
+    if idx is None:
+        idx = sample_indices(generator, num_hypotheses, 3, n, valid_mask)
+    else:
+        idx = torch.as_tensor(idx)
+        if idx.shape[-2:] != (num_hypotheses, 3):
+            raise ValueError(f"idx must be [..., {num_hypotheses}, 3] for "
+                             f"{num_hypotheses} hypotheses, got "
+                             f"{tuple(idx.shape)}")
+        if not idx.is_cuda:
+            pnp_bank.check_indices(idx, n)
+    idx = idx.to(device=world.device, dtype=torch.int64).contiguous()
+    world, obs = (x if x.dtype in (torch.float32, torch.float64)
+                  else x.to(torch.float32) for x in (world, obs))
+    if valid_mask is not None and valid_mask.shape != world.shape[:-1]:
+        valid_mask = valid_mask.expand(world.shape[:-1])
+    with span("ransac.bank"):
+        model, inliers, count, msac = pnp_bank.pnp_bank_cuda(
+            world.contiguous(), obs.contiguous(), idx,
+            None if valid_mask is None else valid_mask.contiguous(),
+            inlier_threshold)
+    return RansacResult(model, inliers, count, msac)

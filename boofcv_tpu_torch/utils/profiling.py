@@ -46,7 +46,8 @@ also fire on the other paths that call those functions):
 - ``pyramid``, ``gradient``: ``ip/pyramid_ops.pyramid_average``,
   ``.gradient``.
 - ``klt``: ``feature/klt.track_pyramid``.
-- ``ransac``: ``geo/robust.ransac_pnp``, with ``refine``
+- ``ransac``: ``geo/robust.ransac_pnp``, with ``ransac.bank`` (on the
+  card: the launch of ``kernels/pnp_bank``) and ``refine``
   (``geo/pnp.gauss_newton_pose``) inside it.
 - ``vo.spawn_wait``: the step's spawn decision, where the host waits for
   tracking, RANSAC and the refine to finish on the device.
@@ -69,7 +70,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-RING = 1 << 17
+# a minute of single-stream steps at 400 frames/s, ten spans a step
+RING = 1 << 18
 
 _recording = True
 _ids = itertools.count(1)

@@ -11,8 +11,9 @@ Phases, each printed on its own line(s); any failure exits non-zero:
 
 1. environment: card name and power limit, torch / CUDA versions, nvcc,
    TF32 switches; fails without a CUDA device;
-2. build: the four kernels (``window_gather``, ``klt_track``,
-   ``gn_pose``, ``schur_fill``) from ``boofcv_tpu_torch/kernels/csrc``,
+2. build: the five kernels (``window_gather``, ``klt_track``,
+   ``gn_pose``, ``schur_fill``, ``pnp_bank``) from
+   ``boofcv_tpu_torch/kernels/csrc``,
    one ``nvcc`` each, and the native
    host library (``boofcv_tpu_torch/native/ccl.cpp`` and ``merge.cpp``,
    one ``g++``), started together; ptxas's registers, spills and stack
@@ -35,12 +36,19 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    ``StereoVisualOdometry`` with the default config (512 tracks, pyramid
    1/2/4/8, disparity 0-96, 256 RANSAC hypotheses), checked against the
    ground-truth poses, with each kernel's launches counted (``gn_pose``
-   once a step), then the sequence runner timed after a warm-up; the
+   and ``pnp_bank`` once a step), then the sequence runner timed after a
+   warm-up; the
    warm-up's 40 refine inputs (what ``ransac_pnp`` hands
    ``gauss_newton_pose``) through ``gn_pose`` and its plain route
    (``geo/pnp._gn_pose_f32``) on the card, at the refine's step tolerance
    and at 0: R and t within 1e-5, NaN in the same places; the last timed
    as the path runs it and with every iteration, beside its bound;
+   ``pnp_bank`` against the plain route (``geo/robust._plain_bank``) on
+   RANSAC banks of the VO cells' shapes (200 samples, 600 tracks; one
+   stream and 16): counts equal, R and t within 1e-5 and masks equal
+   where the winner is the plain route's, a near-tie where it is not
+   (``bank_verdict``), two launches bit-equal, times beside the bound
+   and the plain route's launches;
 5. host syncs by call site in two steady-state steps, the kernels one
    steady-state step launches with the device time they take, and the
    step's stages timed one by one;
@@ -262,7 +270,9 @@ and [16, 600] pose problems, 50 iterations, beside the plain route's times
 version; an empty launch of each grid beside it), ``schur_fill`` on each
 group of the first LM iteration at BAL Venice's counts (the benchmark's
 ``venice.lm10`` problem; ``_sweep_schur_fill``, this tree only) beside
-the plain version run on the card, and ``klt_track`` at
+the plain version run on the card, ``pnp_bank`` at [200 x 4, 600] and
+[16, 200 x 4, 600] beside the plain route's device ms and launches
+(``_sweep_pnp_bank``, this tree only), and ``klt_track`` at
 [512] tracks on 4 levels of 640x480 (also on 1 and 2 levels, and with the
 iteration cap at 1, 2 and 4), [4, 512], [8, 512] and [16, 512] on as many
 frames, [64, 512] and [256, 512] on one shared frame.  ``klt_track`` runs
@@ -324,6 +334,10 @@ KERNELS = {
         "source": "boofcv_tpu_torch/kernels/csrc/schur_fill.cu",
         "replaces": "no TPU kernel: XLA fuses the one-hot einsum of "
                     "boofcv_tpu/geo/ba.py:_local_system"},
+    "pnp_bank": {
+        "source": "boofcv_tpu_torch/kernels/csrc/pnp_bank.cu",
+        "replaces": "no TPU kernel: XLA fuses the batched P3P, K x N "
+                    "scoring and argmax of boofcv_tpu/geo/robust.py:ransac"},
 }
 # published peaks of one H100 SXM: device memory rate, f32 outside the
 # tensor cores
@@ -910,10 +924,11 @@ def _rot_err_deg(Rest_c2w, Rgt_w2c) -> float:
 
 def _kernel_modules() -> dict:
     """The hand kernels' wrapper modules by kernel name."""
-    from boofcv_tpu_torch.kernels import (gn_pose, klt_track, schur_fill,
-                                          window_gather)
+    from boofcv_tpu_torch.kernels import (gn_pose, klt_track, pnp_bank,
+                                          schur_fill, window_gather)
     return {"window_gather": window_gather, "klt_track": klt_track,
-            "gn_pose": gn_pose, "schur_fill": schur_fill}
+            "gn_pose": gn_pose, "schur_fill": schur_fill,
+            "pnp_bank": pnp_bank}
 
 
 def _reset_launches() -> None:
@@ -922,13 +937,16 @@ def _reset_launches() -> None:
         mod.reset_launch_count()
 
 
-def _launches() -> dict:
-    """Every hand kernel's launches since :func:`_reset_launches`;
-    ``schur_fill``, which only bundle adjustment runs, only where it
-    launched."""
-    return {name: mod.launch_count()
-            for name, mod in _kernel_modules().items()
-            if name != "schur_fill" or mod.launch_count()}
+# the hand kernels a stereo VO step runs (its spawns the gather)
+STEREO_VO_KERNELS = ("window_gather", "klt_track", "gn_pose", "pnp_bank")
+
+
+def _launches(names=tuple(KERNELS)) -> dict:
+    """The launches since :func:`_reset_launches` of the hand kernels
+    ``names`` (default: every one), by kernel name.  A path's record
+    names the kernels it runs: each must have launched on it."""
+    mods = _kernel_modules()
+    return {name: mods[name].launch_count() for name in names}
 
 
 def _capture_refine(fn) -> list:
@@ -1032,6 +1050,184 @@ def phase_gn_kernel(dev, tag: str, calls) -> dict:
             "shape": list(lead), "iterations": fast, **out}
 
 
+# the VO cells' RANSAC: K = 200 index sets against N = 600 tracks, 1.5 px
+# at fx 480 in normalized coordinates
+BANK_K, BANK_N, BANK_THR = 200, 600, (1.5 / 480.0) ** 2
+# pnp_bank against its plain route: the kernel solves and scores in the
+# plain route's precision but sums rows and the MSAC in another order, so
+# the two agree to rounding.  Where that rounding moves a near-tie, the two
+# may pick different winners: then their float64 orders (counts - msac /
+# (worst + 1)) agree to BANK_ORDER_RTOL and their inlier masks on all but
+# BANK_MASK_SHARE of the points.  Where they pick the same sample and
+# solution, R and t agree to BANK_POSE_TOL (float32 resolution), the masks
+# are equal and the MSAC agrees to BANK_MSAC_RTOL.
+BANK_ORDER_RTOL, BANK_MASK_SHARE = 1e-6, 1e-3
+BANK_POSE_TOL, BANK_MSAC_RTOL = 1e-5, 1e-5
+
+
+def _bank_scene(dev, lead, n=BANK_N, k=BANK_K, seed=0) -> tuple:
+    """[*lead] RANSAC banks as the VO step hands them to ``pnp_bank``:
+    float64 world points 3-12 m ahead, their normalized projections
+    through each stream's pose with 1e-3 noise, a fifth replaced by random
+    observations, a fifth of the tracks masked, and K index sets drawn by
+    ``robust.sample_indices`` from a generator a stream."""
+    from boofcv_tpu_torch.geo import robust
+    rng = np.random.default_rng(seed)
+    b = int(np.prod(lead))
+    world = np.concatenate([rng.uniform(-4, 4, (b, n, 2)),
+                            rng.uniform(3, 12, (b, n, 1))], -1)
+    obs = world[..., :2] / world[..., 2:] + rng.normal(0, 1e-3, (b, n, 2))
+    bad = rng.uniform(size=(b, n, 1)) < 0.2
+    obs = np.where(bad, rng.uniform(-0.6, 0.6, (b, n, 2)), obs)
+    valid = rng.uniform(size=(b, n)) >= 0.2
+    world, obs, valid = (torch.from_numpy(a.reshape(lead + a.shape[1:])
+                                          ).to(dev)
+                         for a in (world, obs, valid))
+    gens = [torch.Generator(device=dev).manual_seed(seed + i)
+            for i in range(b)]
+    idx = robust.sample_indices(gens if lead else gens[0], k, 3, n, valid)
+    return world, obs, valid, idx
+
+
+def bank_table(world, obs, idx, valid, thr=BANK_THR) -> tuple:
+    """The plain route's whole bank on the same tensors: every solution's
+    (R, t) [..., K*4, ...], inlier mask, count, MSAC and float64 order, as
+    ``robust.ransac`` forms them."""
+    from boofcv_tpu_torch.geo import pnp, robust
+    take = lambda a: robust._take(a, idx)
+    R, t, ok = pnp.p3p_grunert(take(world), take(obs), dtype=torch.float32)
+    lead = idx.shape[:-2]
+    k4 = idx.shape[-2] * 4
+    R, t, ok = (R.reshape(lead + (k4, 3, 3)), t.reshape(lead + (k4, 3)),
+                ok.reshape(lead + (k4,)))
+    err = pnp.reprojection_error_sq(R, t, world.float()[..., None, :, :],
+                                    obs.float()[..., None, :, :])
+    err = torch.where(ok[..., None], err, float("inf"))
+    err = torch.where(torch.isnan(err), float("inf"), err)
+    if valid is not None:
+        err = torch.where(valid[..., None, :], err, float("inf"))
+    is_in = err <= thr
+    counts = is_in.sum(-1)
+    msac = torch.clamp(err, max=thr).sum(-1)
+    worst = msac.amax(-1, keepdim=True)
+    order = counts.double() - (msac / (worst + 1.0)).double()
+    return R, t, is_in, counts, msac, order
+
+
+def bank_verdict(out, world, obs, idx, valid, thr=BANK_THR,
+                 what="pnp_bank") -> dict:
+    """``pnp_bank_cuda``'s result ``out`` against the plain route's bank on
+    the same tensors, stream by stream, under the criteria above: fails
+    on a miss.  Returns the streams, those with the plain route's winner
+    and those with a near-tie, the largest R/t gap of the former and the
+    most mask points that differ in the latter."""
+    from boofcv_tpu_torch.geo import robust
+    (R, t, ok), inl, count, err = out
+    plain = robust._plain_bank(None, world, obs, idx.shape[-2], thr, valid,
+                               "grunert", idx)
+    Rs, ts, is_in, counts, msac, order = bank_table(world, obs, idx, valid,
+                                                    thr)
+    lead = idx.shape[:-2]
+    flat = lambda a: a.reshape((-1,) + a.shape[len(lead):]).cpu().double()
+    R, t, inl, count, err = (flat(a) for a in (R, t, inl, count, err))
+    Rs, ts, is_in, counts, msac, order = (flat(a) for a in (
+        Rs, ts, is_in, counts, msac, order))
+    check(torch.equal(flat(plain.num_inliers),
+                      counts.gather(-1, order.argmax(-1, True))[:, 0]),
+          f"{what}: the table's winners are not the plain route's")
+    n = inl.shape[-1]
+    v = {"streams": R.shape[0], "same_winner": 0, "near_ties": 0,
+         "pose_err": 0.0, "mask_differ": 0}
+    for s in range(R.shape[0]):
+        jp = int(order[s].argmax())
+        check(int(count[s]) == int(counts[s, jp]),
+              f"{what}: stream {s}: {int(count[s])} inliers, the plain "
+              f"route's winner {int(counts[s, jp])}")
+        gap = torch.maximum((Rs[s] - R[s]).abs().amax((-1, -2)),
+                            (ts[s] - t[s]).abs().amax(-1))
+        jk = int(torch.nan_to_num(gap, nan=float("inf")).argmin())
+        if jk == jp or float(gap[jp]) <= BANK_POSE_TOL:
+            close = lambda a, b: bool(np.allclose(
+                a.numpy(), b.numpy(), rtol=0, atol=BANK_POSE_TOL,
+                equal_nan=True))
+            check(close(R[s], Rs[s, jp]) and close(t[s], ts[s, jp]),
+                  f"{what}: stream {s}: R, t {float(gap[jp]):.3e} from "
+                  f"the plain route's winner (limit {BANK_POSE_TOL})")
+            check(torch.equal(inl[s], is_in[s, jp]),
+                  f"{what}: stream {s}: the inlier mask differs from the "
+                  f"plain route's winner's")
+            check(bool(np.isclose(float(err[s]), float(msac[s, jp]),
+                                  rtol=BANK_MSAC_RTOL, atol=0)),
+                  f"{what}: stream {s}: MSAC {float(err[s])} against "
+                  f"{float(msac[s, jp])}")
+            v["same_winner"] += 1
+            v["pose_err"] = max(v["pose_err"],
+                                float(torch.nan_to_num(gap[jp])))
+        else:
+            o_k, o_p = float(order[s, jk]), float(order[s, jp])
+            check(abs(o_k - o_p) <= BANK_ORDER_RTOL * abs(o_p),
+                  f"{what}: stream {s}: another winner, order {o_k} "
+                  f"against the plain route's {o_p}: not a near-tie")
+            differ = int((inl[s] != is_in[s, jp]).sum())
+            check(differ <= BANK_MASK_SHARE * n,
+                  f"{what}: stream {s}: near-tie winners' masks differ on "
+                  f"{differ} of {n} points")
+            v["near_ties"] += 1
+            v["mask_differ"] = max(v["mask_differ"], differ)
+    return v
+
+
+def _bank_bound(world, obs, valid, idx) -> dict:
+    """Bound of one ``pnp_bank`` launch: every input once and the outputs
+    (mask, pose, counts) once; about 25 float32 operations a point and
+    solution (the 3x3 product and translation, the division, the
+    residual) and about 1,000 a sample for the solve."""
+    b = int(np.prod(idx.shape[:-2]))
+    k, n = idx.shape[-2], world.shape[-2]
+    n_bytes = sum(x.numel() * x.element_size()
+                  for x in (world, obs, valid, idx)) + b * (n + 61)
+    return bound(n_bytes, 25 * b * k * 4 * n + 1000 * b * k)
+
+
+def _bank_case(tag: str, world, obs, valid, idx) -> dict:
+    """``pnp_bank`` against the plain route (``robust._plain_bank``) on
+    the same banks (:func:`bank_verdict`; two launches bit-equal), the
+    kernel's device ms and ms a call beside its bound, the plain route's
+    device ms, ms a call and launches a call."""
+    from boofcv_tpu_torch.geo import robust
+    from boofcv_tpu_torch.kernels import pnp_bank as pb
+    k = idx.shape[-2]
+    kern = lambda: pb.pnp_bank_cuda(world, obs, idx, valid, BANK_THR)
+    plain = lambda: robust._plain_bank(None, world, obs, k, BANK_THR, valid,
+                                       "grunert", idx)
+    shape = tuple(idx.shape[:-2]) + (k * 4, world.shape[-2])
+    what = f"pnp_bank {tag} [{', '.join(map(str, shape))}]"
+    out = kern()
+    again = kern()
+    check(all(torch.equal(a, b) for a, b in zip(
+        torch.utils._pytree.tree_leaves(out),
+        torch.utils._pytree.tree_leaves(again))),
+          f"{what}: two launches differ")
+    v = bank_verdict(out, world, obs, idx, valid, what=what)
+    events, _ = _trace(plain, cpu=False)
+    print(f"kernel: {what}: against the plain route in {v['streams']} "
+          f"streams: the plain route's winner in {v['same_winner']} (R, t "
+          f"within {v['pose_err']:.3e}, limit {BANK_POSE_TOL}; masks "
+          f"equal), a near-tie in {v['near_ties']} (masks differ on at most "
+          f"{v['mask_differ']} of {world.shape[-2]}); counts equal; two "
+          f"launches bit-equal; plain route launches a call={len(events)}")
+    out = _print_times(what, _bank_bound(world, obs, valid, idx),
+                       _times(kern, plain, "pnp_bank_kernel", 5))
+    return {**out, **v, "plain_launches": len(events)}
+
+
+def phase_bank_kernel(dev) -> tuple:
+    """``pnp_bank`` at the VO cells' shapes, one stream and 16: returns
+    (the one stream's numbers, the 16 streams')."""
+    return (_bank_case("single stream", *_bank_scene(dev, ())),
+            _bank_case("B=16", *_bank_scene(dev, (16,))))
+
+
 def _stage_timer():
     """(ms by name, timed): ``timed(name, fn)`` wraps ``fn`` so that each
     call, with a synchronize before and after, adds its host wall ms to
@@ -1065,6 +1261,7 @@ def _stage_table(tag, cfg, state, lefts, rights) -> None:
                (klt, "track_pyramid", "klt_track_pyramid"),
                (robust, "sample_indices", "ransac_sample_indices"),
                (robust, "ransac", "ransac_total"),
+               (robust, "_kernel_bank", "ransac_total"),
                (pnp, "gauss_newton_pose", "gn_refine")]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
     try:
@@ -1112,7 +1309,7 @@ def phase_slice(dev, poses, frames) -> dict:
             spawns += 1          # a spawn that filled at least one slot
         next_uid = uid
     torch.cuda.synchronize()
-    launches = _launches()
+    launches = _launches(STEREO_VO_KERNELS)
     gt = np.stack([-R.T @ t for R, t in poses])
     ate = float(np.mean(np.linalg.norm(np.stack(centres) - gt, axis=1)))
     total = float(np.linalg.norm(gt[-1]))
@@ -1125,6 +1322,7 @@ def phase_slice(dev, poses, frames) -> dict:
     print(f"slice: launches in bootstrap+{N_FRAMES - 1} steps: klt_track="
           f"{launches['klt_track']} window_gather="
           f"{launches['window_gather']} gn_pose={launches['gn_pose']} "
+          f"pnp_bank={launches['pnp_bank']} "
           f"(spawns seen after the bootstrap: {spawns})")
     print(f"slice: process() per-frame wall ms (step + pose readback): "
           f"median={1e3 * np.median(frame_s[1:]):.3f} "
@@ -1136,6 +1334,9 @@ def phase_slice(dev, poses, frames) -> dict:
     check(launches["gn_pose"] == N_FRAMES - 1,
           f"gn_pose launched {launches['gn_pose']} times in {N_FRAMES - 1} "
           f"steps (one refine a step)")
+    check(launches["pnp_bank"] == N_FRAMES - 1,
+          f"pnp_bank launched {launches['pnp_bank']} times in "
+          f"{N_FRAMES - 1} steps (one RANSAC bank a step)")
     check(launches["window_gather"] >= 2 + 2 * spawns
           and launches["window_gather"] % 2 == 0,
           f"window_gather launched {launches['window_gather']} times: "
@@ -1530,7 +1731,7 @@ def phase_batched(dev, poses, frames, single) -> tuple:
         calls = _capture_refine(lambda: outs.append(run(s0, lefts, rights)))
         s_end, ((Rs, ts), ms) = outs.pop()
         torch.cuda.synchronize()
-        launches[tag] = _launches()
+        launches[tag] = _launches(STEREO_VO_KERNELS)
         if b == 16:
             refine_calls[:] = calls
         check(Rs.shape == (T, b, 3, 3) and ts.shape == (T, b, 3),
@@ -1566,6 +1767,10 @@ def phase_batched(dev, poses, frames, single) -> tuple:
         check(launches[tag]["gn_pose"] == T,
               f"{tag}: gn_pose launched {launches[tag]['gn_pose']} times "
               f"in {T} batched steps")
+        check(launches[tag]["pnp_bank"] == T,
+              f"{tag}: pnp_bank launched "
+              f"{launches[tag]['pnp_bank']} times in {T} batched "
+              f"steps")
         fps = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -1905,7 +2110,7 @@ def phase_ba(dev) -> dict:
         _reset_launches()
         (res, info), syncs = _count_sync_warnings(solve)
         torch.cuda.synchronize()
-        n_fill = _launches().get("schur_fill", 0)
+        n_fill = _launches()["schur_fill"]
         peak = torch.cuda.max_memory_allocated(dev) / 2**20
         costs = _check_costs(f"ba {name}", info)
         rms = _rms(ba, res)
@@ -2211,14 +2416,15 @@ def phase_ba_vo(dev, poses, frames) -> dict:
           f"{err_ba:.6f} (motion {float(np.linalg.norm(c_gt)):.6f}); launches "
           f"klt_track={launches['klt_track']} window_gather="
           f"{launches['window_gather']} gn_pose={launches['gn_pose']} "
-          f"schur_fill={launches.get('schur_fill', 0)}")
-    for name in ("klt_track", "gn_pose"):
+          f"schur_fill={launches['schur_fill']} "
+          f"pnp_bank={launches['pnp_bank']}")
+    for name in ("klt_track", "gn_pose", "pnp_bank"):
         check(launches[name] == n - 1, f"ba_vo: {name} launched "
                                        f"{launches[name]} times in {n - 1} "
                                        f"steps")
     check(launches["window_gather"] >= 2,
           "ba_vo: window_gather was not launched by the bootstrap")
-    check(launches.get("schur_fill", 0) >= len(opt_ms),
+    check(launches["schur_fill"] >= len(opt_ms),
           "ba_vo: the window's solves did not launch schur_fill")
     return launches
 
@@ -2239,7 +2445,7 @@ def phase_ba_scale(dev) -> None:
     _reset_launches()
     res, info = solve()
     torch.cuda.synchronize()
-    n_fill = _launches().get("schur_fill", 0)
+    n_fill = _launches()["schur_fill"]
     peak = torch.cuda.max_memory_allocated(dev) / 2**20
     costs = _check_costs("ba_scale", info)
     ms = _solve_ms(solve, reps=3)
@@ -3655,7 +3861,8 @@ def _family(tag: str, what: str, dev, process, accuracy, kernels=(),
           f"{med:.3f} p90={np.percentile(timed, 90):.3f} first={wall[0]:.3f})"
           f"; launches in {n_frames - 2} frames: klt_track="
           f"{launches['klt_track']} window_gather={launches['window_gather']}"
-          f" gn_pose={launches['gn_pose']}; one profiled frame: {len(events)} kernels, device busy "
+          f" gn_pose={launches['gn_pose']} pnp_bank={launches['pnp_bank']}"
+          f"; one profiled frame: {len(events)} kernels, device busy "
           f"{busy:.3f} ms, idle share {1 - busy / med:.4f} of the median "
           f"frame; host syncs a frame={sum(syncs.values())} "
           f"{dict(sorted(syncs.items()))}; peak device memory MiB="
@@ -3726,19 +3933,20 @@ def phase_vo_families(dev, poses, frames) -> dict:
         "vo_depth", f"DepthVisualOdometry {W}x{H}, {cfg.num_tracks} tracks, "
         f"pyramid {cfg.pyramid_scales}", dev,
         depth_vo.DepthVisualOdometry(cfg, K, H, W, device=dev), rgbd, poses,
-        0.15, ("klt_track", "gn_pose"))
+        0.15, ("klt_track", "gn_pose", "pnp_bank"))
     dcfg = dual_track_vo.DualTrackVoConfig()
     launches["vo_dual"] = _vo_family(
         "vo_dual", f"DualTrackVisualOdometry {W}x{H}, {dcfg.num_tracks} "
         f"tracks, pyramid {dcfg.pyramid_scales}, D={dcfg.max_disparity}", dev,
         dual_track_vo.DualTrackVisualOdometry(dcfg, K, BASELINE, device=dev),
-        pairs, poses, 0.15, ("klt_track", "window_gather", "gn_pose"))
+        pairs, poses, 0.15, ("klt_track", "window_gather", "gn_pose",
+                             "pnp_bank"))
     qcfg = quad_vo.QuadVoConfig()
     launches["vo_quad"] = _vo_family(
         "vo_quad", f"QuadVisualOdometry {W}x{H}, {qcfg.num_features} SURF "
         f"features an image", dev,
         quad_vo.QuadVisualOdometry(qcfg, K, BASELINE, device=dev), pairs,
-        poses, 0.25, ("gn_pose",))
+        poses, 0.25, ("gn_pose", "pnp_bank"))
     _vo_family("vo_direct", f"DirectDepthVisualOdometry {W}x{H}, scales "
                "(1, 2, 4), 10 Gauss-Newton iterations a level (no hand "
                "kernel)", dev, direct_vo.DirectDepthVisualOdometry(
@@ -6321,10 +6529,12 @@ def phase_ip_more(dev) -> None:
 
 # the examples whose path reaches a hand kernel, with the kernels it runs
 EXAMPLE_KERNELS = {
-    "visual_odometry_stereo": ("klt_track", "window_gather", "gn_pose"),
-    "visual_odometry_depth": ("klt_track", "gn_pose"),
-    "pnp": ("gn_pose",),
-    "pose_of_calibration_target": ("gn_pose",),
+    "visual_odometry_stereo": ("klt_track", "window_gather", "gn_pose",
+                               "pnp_bank"),
+    "visual_odometry_depth": ("klt_track", "gn_pose", "pnp_bank"),
+    "pnp": ("gn_pose", "pnp_bank"),
+    "pose_of_calibration_target": ("gn_pose", "pnp_bank"),
+    "multiview_reconstruction": ("pnp_bank",),
     "visual_odometry_mono_plane": ("klt_track",),
     "point_feature_tracker": ("klt_track",),
     "video_stabilization": ("klt_track",),
@@ -6412,7 +6622,7 @@ def phase_cli_vo(dev, poses, frames) -> dict:
                                          plain + ["--output", out["timed"]])
         finally:
             svo.process = process
-        launches = _launches()
+        launches = _launches(STEREO_VO_KERNELS)
         check(rc == 0, f"cli_vo: stereo_vo_demo returned {rc}")
         oks = [line.split("ok=")[1].startswith("True")
                for line in log.splitlines() if line.startswith("frame ")]
@@ -6504,6 +6714,9 @@ def phase_cli_vo(dev, poses, frames) -> dict:
     check(launches["gn_pose"] == N_FRAMES - 1,
           f"cli_vo: gn_pose launched {launches['gn_pose']} times in "
           f"{N_FRAMES - 1} steps")
+    check(launches["pnp_bank"] == N_FRAMES - 1,
+          f"cli_vo: pnp_bank launched {launches['pnp_bank']} times "
+          f"in {N_FRAMES - 1} steps")
     return launches
 
 
@@ -6530,7 +6743,8 @@ def phase_examples(dev) -> dict:
         last = (log.strip().splitlines() or [""])[-1]
         print(f"examples: {name}: {1e3 * wall:.1f} ms rc={rc} last line "
               f"{last!r} launches klt_track={n['klt_track']} window_gather="
-              f"{n['window_gather']} gn_pose={n['gn_pose']}")
+              f"{n['window_gather']} gn_pose={n['gn_pose']} pnp_bank="
+              f"{n['pnp_bank']}")
         if rc != 0 or last != "OK" or "device: cuda" not in log:
             failed.append(name)
             print(log)
@@ -7090,6 +7304,8 @@ def phase_dist(dev) -> None:
           "neither")
     check(by_part["_dist_ransac"]["gn_pose"] >= 1,
           "dist: ransac_pnp_sharded's refine did not launch gn_pose")
+    check(by_part["_dist_ransac"]["pnp_bank"] >= 1,
+          "dist: ransac_pnp_sharded's banks did not launch pnp_bank")
     t0 = time.perf_counter()
     _dist_cpu_leg()
     walls["_dist_cpu_leg"] = time.perf_counter() - t0
@@ -7375,6 +7591,25 @@ def _sweep_gn_pose(dev):
                   f"{cuda_ms(plain, 5):.6f}")
 
 
+def _sweep_pnp_bank(dev):
+    """``pnp_bank`` at the VO cells' shapes, [200 x 4, 600] and [16,
+    200 x 4, 600] (K = 200 samples of four solutions against N = 600
+    tracks): the kernel against the plain route on the same banks, its
+    device ms, ms a call and bound, the plain route's device ms (every
+    kernel it launches), ms a call and launches (:func:`_bank_case`)."""
+    from boofcv_tpu_torch.kernels import _nvcc
+    from boofcv_tpu_torch.kernels import pnp_bank as pb
+    pb._KERNEL.library()
+    rec = _nvcc.build_record("pnp_bank")
+    print(f"sweep: pnp_bank built={rec['built']} nvcc_s={rec['build_s']:.3f}")
+    for fn, regs, stores, loads, stack in ptxas_summary(rec["ptxas"]):
+        print(f"sweep: pnp_bank ptxas: {fn} registers={regs} "
+              f"spill_stores={stores} spill_loads={loads} "
+              f"stack_frame={stack}")
+    for lead in ((), (16,)):
+        _bank_case("sweep", *_bank_scene(dev, lead, seed=7))
+
+
 def _venice_problem(dev, seed=1):
     """The float32 BA problem of the benchmark's ``venice.lm10`` cell (BAL
     Venice's counts, ``perfbench/traffic/bal_scene.py`` and the
@@ -7525,6 +7760,8 @@ def sweep_main(argv) -> int:
             _sweep_klt(dev, lefts, others + loops)
         if "schur_fill" in only:
             _sweep_schur_fill(dev)
+        if "pnp_bank" in only:
+            _sweep_pnp_bank(dev)
     except SmokeFailure as e:
         print(f"chip_smoke --sweep: FAILED: {e}", file=sys.stderr)
         return 1
@@ -7554,9 +7791,11 @@ def main() -> int:
         single = phase_slice(dev, poses, frames)
         measured["gn_pose"] = phase_gn_kernel(dev, "single stream",
                                               single.pop("refine_calls"))
+        measured["pnp_bank"], batched_bank = phase_bank_kernel(dev)
         batched = phase_batched_kernels(dev, frames)
         by_path, calls16 = phase_batched(dev, poses, frames, single)
         batched["gn_pose"] = phase_gn_kernel(dev, "B=16", calls16)
+        batched["pnp_bank"] = batched_bank
         del calls16
         launches = {"single stream": single["launches"], **by_path}
         phase_720p(dev)

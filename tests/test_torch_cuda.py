@@ -2015,3 +2015,301 @@ def test_gn_pose_route_takes_what_the_cpu_route_takes(cuda):
     assert R.shape == (3, 3, 3) and t.shape == (3, 3)
     np.testing.assert_allclose(R.cpu(), Rc, atol=GN_TOL, rtol=0)
     np.testing.assert_allclose(t.cpu(), tc, atol=GN_TOL, rtol=0)
+
+
+# ---- the RANSAC bank's kernel (kernels/pnp_bank.py) -----------------------
+# The kernel solves and scores in the plain route's precision, but sums its
+# rows and the MSAC in another order, so the two agree to rounding:
+# ``chip_smoke.bank_verdict`` holds the criteria, which ``chip_smoke.py``'s
+# own check of the kernel applies too (counts equal; the plain route's
+# winner within float32 resolution, or a near-tie).
+BANK_THR = (1.5 / 480.0) ** 2      # 1.5 px at fx 480, as the VO cells
+
+
+def _bank_scene(lead=(), n=600, seed=0, holes=0.2, outliers=0.2):
+    """B streams of a PnP problem as the VO hands RANSAC them: float64
+    world points 3-12 m ahead, their normalized projections through each
+    stream's pose with 1e-3 noise, ``outliers`` of them replaced by random
+    observations, and a mask with ``holes`` of the points off."""
+    rng = np.random.default_rng(seed)
+    worlds, obss, masks = [], [], []
+    for _ in range(int(np.prod(lead))):
+        R = _rotation(rng.normal(0, 0.1, 3))
+        t = rng.normal(0, 0.5, 3)
+        world = np.concatenate([rng.uniform(-4, 4, (n, 2)),
+                                rng.uniform(3, 12, (n, 1))], -1)
+        cam = world @ R.T + t
+        obs = cam[:, :2] / cam[:, 2:] + rng.normal(0, 1e-3, (n, 2))
+        bad = rng.uniform(size=n) < outliers
+        obs[bad] = rng.uniform(-0.6, 0.6, (int(bad.sum()), 2))
+        worlds.append(world)
+        obss.append(obs)
+        masks.append(rng.uniform(size=n) >= holes)
+    as_t = lambda xs: torch.from_numpy(np.stack(xs).reshape(
+        lead + xs[0].shape))
+    return as_t(worlds), as_t(obss), as_t(masks)
+
+
+def _check_bank(kernel, world, obs, idx, valid):
+    """The kernel's result against the plain route's bank on the same
+    tensors (``chip_smoke.bank_verdict``), stream by stream."""
+    import chip_smoke as cs
+    cs.bank_verdict(kernel, world, obs, idx, valid, BANK_THR)
+
+
+def _bank_launch(world, obs, idx, valid):
+    """pnp_bank_cuda once, and its launches (1)."""
+    from boofcv_tpu_torch.kernels import pnp_bank
+    before = pnp_bank.launch_count()
+    out = pnp_bank.pnp_bank_cuda(world, obs, idx, valid, BANK_THR)
+    torch.cuda.synchronize()
+    return out, pnp_bank.launch_count() - before
+
+
+@pytest.mark.parametrize("lead,n,k", [((), 600, 200), ((16,), 600, 200),
+                                      ((), 8, 16), ((3,), 2000, 64),
+                                      ((), 97, 50)])
+def test_pnp_bank_matches_the_plain_route(cuda, lead, n, k):
+    """One stream and sixteen, 8 to 2,000 points with holes in the mask and
+    a fifth of outliers, index sets drawn on the card: the kernel against
+    the plain route's bank on the same tensors and index sets (counts
+    equal; the same winner within float32 rounding, or a near-tie); one
+    launch; two launches bit-equal."""
+    from boofcv_tpu_torch.geo import robust
+    world, obs, valid = (x.to(cuda) for x in _bank_scene(lead, n, seed=n))
+    gens = [torch.Generator(device=cuda).manual_seed(b)
+            for b in range(int(np.prod(lead)))]
+    idx = robust.sample_indices(gens if lead else gens[0], k, 3, n, valid)
+    out, launches = _bank_launch(world, obs, idx, valid)
+    assert launches == 1
+    (R, t, ok), inl, count, err = out
+    assert (R.shape, t.shape, ok.shape, inl.shape, count.shape,
+            err.shape) == (lead + (3, 3), lead + (3,), lead, lead + (n,),
+                           lead, lead)
+    assert (R.dtype, t.dtype, ok.dtype, inl.dtype, count.dtype,
+            err.dtype) == (torch.float32, torch.float32, torch.bool,
+                           torch.bool, torch.int64, torch.float32)
+    _check_bank(out, world, obs, idx, valid)
+    again, _ = _bank_launch(world, obs, idx, valid)
+    for a, b in zip(torch.utils._pytree.tree_leaves(out),
+                    torch.utils._pytree.tree_leaves(again)):
+        assert torch.equal(a, b)
+    if n >= 600:
+        # a well-posed bank finds the pose: most of the good points agree
+        assert bool(ok.all()) and int(count.min()) > 0.5 * n * 0.8 * 0.8
+
+
+def _no_real_root_sample(world, obs, first):
+    """Indices, from ``first`` on, of a triple of ``world``/``obs`` whose
+    P3P quartic has no real root (found on the CPU by watching
+    ``pnp.quartic_roots``)."""
+    seen = []
+    real_roots = pnp.quartic_roots
+
+    def watch(*a):
+        roots, real = real_roots(*a)
+        seen.append(real)
+        return roots, real
+    rng = np.random.default_rng(7)
+    n = world.shape[0]
+    for _ in range(200):
+        cand = torch.from_numpy(np.stack([
+            rng.choice(np.arange(first, n), 3, replace=False)
+            for _ in range(64)]))
+        pnp.quartic_roots = watch
+        try:
+            pnp.p3p_grunert(world[cand], obs[cand], dtype=torch.float32)
+        finally:
+            pnp.quartic_roots = real_roots
+        none = ~seen.pop().any(-1)
+        if bool(none.any()):
+            return cand[int(torch.nonzero(none)[0, 0])]
+    raise AssertionError("no triple without a real root")
+
+
+def test_pnp_bank_degenerate_samples(cuda):
+    """Samples that give no usable pose mixed into a bank, and as a bank of
+    their own: three collinear points, points behind the camera, a NaN
+    observation, a triple whose quartic has no real root.  The mixed bank
+    meets the plain route's criteria; the NaN sample, and the rootless one,
+    alone as a bank give the plain route's count (0), mask (empty) and
+    MSAC (no pose is usable, so the pose is not compared)."""
+    import chip_smoke as cs
+    world, obs, valid = _bank_scene(n=300, seed=3, outliers=0.3)
+    world, obs = world.clone(), obs.clone()
+    # 0-2 collinear, with their true projections kept consistent
+    world[1] = world[0] + 0.5 * (world[2] - world[0])
+    obs[1] = world[1, :2] / world[1, 2]
+    # 3-5 behind the camera
+    world[3:6, 2] *= -1.0
+    # 6: a NaN observation
+    obs[6] = float("nan")
+    valid[:7] = True
+    none = _no_real_root_sample(world, obs, 11)
+    special = torch.stack([torch.tensor([0, 1, 2]), torch.tensor([3, 4, 5]),
+                           torch.tensor([3, 9, 10]), torch.tensor([6, 7, 8]),
+                           none])
+    from boofcv_tpu_torch.geo import robust
+    drawn = robust.sample_indices(torch.Generator().manual_seed(0), 40, 3,
+                                  300, valid)
+    idx = torch.cat([special, drawn]).to(cuda)
+    world, obs, valid = world.to(cuda), obs.to(cuda), valid.to(cuda)
+    out, launches = _bank_launch(world, obs, idx, valid)
+    assert launches == 1
+    _check_bank(out, world, obs, idx, valid)
+    # the NaN observation's sample and the one with no real root alone
+    for row in special[3:]:
+        one = row[None].to(cuda)
+        (R, t, ok), inl, count, err = _bank_launch(world, obs, one, valid)[0]
+        _, _, is_in, counts, msac, order = cs.bank_table(world, obs, one,
+                                                         valid, BANK_THR)
+        jp = int(order.argmax())
+        assert int(count) == int(counts[jp]) == 0 and not bool(ok)
+        assert torch.equal(inl, is_in[jp]) and not bool(inl.any())
+        np.testing.assert_allclose(float(err), float(msac[jp]), rtol=1e-5)
+
+
+def test_ransac_pnp_on_the_card_is_one_bank_launch(cuda):
+    """``ransac_pnp(p3p="grunert")`` on the card: the generators draw as on
+    the plain route, one ``pnp_bank`` launch a call (one stream or B), the
+    route counted; Finsterwalder keeps the plain route.  The bank's result
+    meets the plain route's criteria, and the refine runs on its inliers."""
+    from boofcv_tpu_torch.geo import robust
+    from boofcv_tpu_torch.kernels import pnp_bank
+    for lead in ((), (16,)):
+        world, obs, valid = (x.to(cuda) for x in _bank_scene(lead, 600,
+                                                             seed=11))
+        seeds = range(int(np.prod(lead)))
+        gen = lambda: ([torch.Generator(device=cuda).manual_seed(s)
+                        for s in seeds] if lead else
+                       torch.Generator(device=cuda).manual_seed(0))
+        robust.reset_bank_routes()
+        before = pnp_bank.launch_count()
+        res, (Rr, tr) = robust.ransac_pnp(gen(), world, obs,
+                                          num_hypotheses=200,
+                                          inlier_threshold=BANK_THR,
+                                          valid_mask=valid,
+                                          refine_iterations=50)
+        torch.cuda.synchronize()
+        assert pnp_bank.launch_count() == before + 1
+        assert robust.bank_routes() == {"kernel": 1, "plain": 0}
+        g = gen()
+        idx = robust.sample_indices(g, 200, 3, 600, valid)
+        _check_bank((res.model, res.inliers, res.num_inliers,
+                     res.best_error), world, obs, idx, valid)
+        assert Rr.shape == lead + (3, 3) and tr.dtype == torch.float64
+        robust.ransac_pnp(gen(), world, obs, num_hypotheses=200,
+                          inlier_threshold=BANK_THR, valid_mask=valid,
+                          p3p="finsterwalder")
+        assert pnp_bank.launch_count() == before + 1
+        assert robust.bank_routes() == {"kernel": 1, "plain": 1}
+
+
+def test_ransac_pnp_on_the_card_checks_a_callers_index_sets(cuda):
+    """Index sets a caller hands in are read as the plain route reads them
+    (any integer dtype, from the CPU) and refused, with no launch, when an
+    index lies outside the points or the bank's size is not
+    ``num_hypotheses``."""
+    from boofcv_tpu_torch.geo import robust
+    from boofcv_tpu_torch.kernels import pnp_bank
+    world, obs, valid = (x.to(cuda) for x in _bank_scene(n=50, seed=2))
+    idx = torch.randint(0, 50, (20, 3), generator=torch.Generator(
+        ).manual_seed(1), dtype=torch.int32)
+    res, _ = robust.ransac_pnp(None, world, obs, num_hypotheses=20,
+                               inlier_threshold=BANK_THR, valid_mask=valid,
+                               idx=idx)
+    _check_bank((res.model, res.inliers, res.num_inliers, res.best_error),
+                world, obs, idx.long().to(cuda), valid)
+    before = pnp_bank.launch_count()
+    for bad, words in ((idx.clone().fill_(50), r"outside \[0, 50\)"),
+                       (-idx - 1, "outside"), (idx[:10], "must be")):
+        with pytest.raises(ValueError, match=words):
+            robust.ransac_pnp(None, world, obs, num_hypotheses=20,
+                              inlier_threshold=BANK_THR, valid_mask=valid,
+                              idx=bad)
+    assert pnp_bank.launch_count() == before
+
+
+def test_pnp_bank_makes_no_host_sync(cuda):
+    """The bank with index sets drawn by ``ransac_pnp`` itself reads
+    nothing back: no host sync under the debug mode's error."""
+    from boofcv_tpu_torch.geo import robust
+    world, obs, valid = (x.to(cuda) for x in _bank_scene((4,), 600, seed=5))
+    gens = [torch.Generator(device=cuda).manual_seed(s) for s in range(4)]
+    robust.ransac_pnp(gens, world, obs, num_hypotheses=200,
+                      inlier_threshold=BANK_THR, valid_mask=valid,
+                      refine_iterations=10)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        robust.ransac_pnp(gens, world, obs, num_hypotheses=200,
+                          inlier_threshold=BANK_THR, valid_mask=valid,
+                          refine_iterations=10)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_ransac_pnp_reads_a_card_index_set_unchecked(cuda):
+    """Index sets a caller hands in on the card (int64) are not read back:
+    no host sync, one launch, and a sample with an index outside the
+    points is unusable, so a bank with it wins as the bank without it
+    does, bit for bit, and alone it finds no pose."""
+    from boofcv_tpu_torch.geo import robust
+    from boofcv_tpu_torch.kernels import pnp_bank
+    world, obs, valid = (x.to(cuda) for x in _bank_scene(n=600, seed=9))
+    rest = robust.sample_indices(torch.Generator(device=cuda).manual_seed(4),
+                                 199, 3, 600, valid)
+    bad = torch.tensor([[5, 600, 7]], device=cuda)
+    call = lambda idx: robust.ransac_pnp(
+        None, world, obs, num_hypotheses=idx.shape[0],
+        inlier_threshold=BANK_THR, valid_mask=valid, refine_iterations=10,
+        idx=idx)
+    want, _ = call(rest)
+    torch.cuda.synchronize()
+    before = pnp_bank.launch_count()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, _ = call(torch.cat([bad, rest]))
+        alone, _ = call(bad)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert pnp_bank.launch_count() == before + 2
+    for a, b in zip(torch.utils._pytree.tree_leaves(got),
+                    torch.utils._pytree.tree_leaves(want)):
+        assert torch.equal(a, b)
+    assert int(alone.num_inliers) == 0 and not bool(alone.model[2])
+    assert not bool(alone.inliers.any())
+
+
+def test_ransac_pnp_sharded_bank_makes_no_host_sync(cuda, nccl_group):
+    """``ransac_pnp_sharded`` on the one-rank NCCL group ``make_mesh``
+    starts on the card: its bank, drawn on the card and handed to
+    ``ransac_pnp`` as index sets, is one ``pnp_bank`` launch a call, and
+    the call reads nothing back; the pose is found."""
+    import warnings
+    from boofcv_tpu_torch.dist import make_mesh
+    from boofcv_tpu_torch.dist.ransac_sharded import ransac_pnp_sharded
+    from boofcv_tpu_torch.kernels import pnp_bank
+    mesh = make_mesh()
+    world, obs, _ = (x.to(cuda) for x in _bank_scene(n=512, seed=6))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    call = lambda: ransac_pnp_sharded(mesh, gen, world, obs,
+                                      num_hypotheses_per_device=256,
+                                      inlier_threshold=BANK_THR)
+    call()
+    torch.cuda.synchronize()
+    before = pnp_bank.launch_count()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res, (R, t) = call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert not syncs, syncs
+    assert pnp_bank.launch_count() == before + 1
+    assert int(res.num_inliers) > 0.5 * 512 * 0.8

@@ -23,6 +23,7 @@ from boofcv_tpu_torch.geo import ba, pnp
 from boofcv_tpu_torch.kernels import _nvcc
 from boofcv_tpu_torch.kernels import gn_pose as gp
 from boofcv_tpu_torch.kernels import klt_track as kt
+from boofcv_tpu_torch.kernels import pnp_bank as pb
 from boofcv_tpu_torch.kernels import schur_fill as sf
 from boofcv_tpu_torch.kernels import window_gather as wg
 
@@ -187,11 +188,14 @@ def _cpu_calls(name):
         "gn_pose": [lambda: gp.gn_pose_cuda(*_gn_args(), 10, 1e-9, 1e-6)],
         "schur_fill": [lambda: sf.schur_fill_cuda(*_fill_args()),
                        lambda: sf.schur_fill_cuda(None, *_fill_args()[1:])],
+        "pnp_bank": [lambda: pb.pnp_bank_cuda(*_bank_args(), 1e-5),
+                     lambda: pb.pnp_bank_cuda(None, *_bank_args()[1:],
+                                              1e-5)],
     }[name]
 
 
 KERNELS = {"klt_track": kt, "window_gather": wg, "gn_pose": gp,
-           "schur_fill": sf}
+           "schur_fill": sf, "pnp_bank": pb}
 
 
 @pytest.mark.parametrize("name", list(KERNELS))
@@ -742,8 +746,8 @@ def test_threads_racing_to_first_use_load_once(monkeypatch):
 def test_nvcc_command_carries_each_kernels_own_flags(monkeypatch, tmp_path,
                                                      name):
     """The nvcc command a wrapper's first use runs is the shared flags and
-    then the module's own: ``-fmad=false`` for ``klt_track`` alone.  The
-    builder itself names no kernel."""
+    then the module's own: ``-fmad=false`` for ``klt_track`` and
+    ``pnp_bank`` alone.  ``_nvcc`` itself names no kernel."""
     k = KERNELS[name]._KERNEL
     monkeypatch.setattr(k, "_lib", None)
     monkeypatch.setattr(k, "_launcher", None)
@@ -760,7 +764,8 @@ def test_nvcc_command_carries_each_kernels_own_flags(monkeypatch, tmp_path,
     with pytest.raises(RuntimeError, match="nvcc failed"):
         k.library()
     (cmd,) = commands
-    want = ("-fmad=false",) if name == "klt_track" else ()
+    want = (("-fmad=false",) if name in ("klt_track", "pnp_bank")
+            else ())
     assert cmd[1:1 + len(_nvcc.NVCC_FLAGS)] == list(_nvcc.NVCC_FLAGS)
     assert tuple(cmd[1 + len(_nvcc.NVCC_FLAGS):-3]) == want
     assert cmd[-1].endswith(f"csrc/{name}.cu")
@@ -768,3 +773,251 @@ def test_nvcc_command_carries_each_kernels_own_flags(monkeypatch, tmp_path,
     with open(_nvcc.__file__) as f:
         source = f.read()
     assert not any(n in source for n in KERNELS)
+
+
+# ---- the RANSAC bank's kernel (kernels/pnp_bank.py) -----------------------
+
+def _bank_args(lead=(), n=7, k=5, dtypes=(F64, F64), mask=True):
+    """world, obs, idx, valid_mask of ``pnp_bank_cuda`` (values do not
+    matter to the packing)."""
+    g = torch.Generator().manual_seed(n + k)
+    world = torch.rand(lead + (n, 3), generator=g, dtype=dtypes[0])
+    obs = torch.rand(lead + (n, 2), generator=g, dtype=dtypes[1])
+    idx = torch.randint(0, n, lead + (k, 3), generator=g)
+    valid = torch.rand(lead + (n,), generator=g) > 0.2 if mask else None
+    return [world, obs, idx, valid]
+
+
+@pytest.mark.parametrize("lead,dtypes,mask", [((), (F64, F64), True),
+                                              ((16,), (F64, F64), True),
+                                              ((3,), (F32, F64), False),
+                                              ((), (F32, F32), False)])
+def test_pnp_bank_pack_fills_the_kernel_struct(lead, dtypes, mask):
+    """Every field of ``PnpBankArgs`` as the kernel reads it: the input
+    pointers (no mask: 0), streams, points, samples, the threshold in
+    float32 (as PyTorch compares a float32 error with a Python float) and a
+    float64 flag for world and obs; output and scratch pointers are the
+    wrapper's, after its allocation."""
+    args = _bank_args(lead, dtypes=dtypes, mask=mask)
+    index, got_lead, b, n, k = pb._pack(*args, 2.5e-6)
+    assert (index, tuple(got_lead), b, n, k) == (-1, lead, lead[0] if lead
+                                                 else 1, 7, 5)
+    (a,), _ = pb._KERNEL.structs()
+    world, obs, idx, valid = args
+    assert [a.world, a.obs, a.idx] == [x.data_ptr() for x in args[:3]]
+    assert a.valid == (valid.data_ptr() if mask else None)
+    assert [a.sol, a.tickets, a.R_out, a.t_out, a.err_out, a.count_out,
+            a.ok_out, a.inliers_out] == [None] * 8
+    assert (a.b, a.n, a.k) == (b, 7, 5)
+    assert a.thr == np.float32(2.5e-6)
+    assert (a.world_f64, a.obs_f64) == tuple(int(d is F64) for d in dtypes)
+    assert ctypes.sizeof(pb._Args) == pb._ARGS_FMT.size
+    # the C struct's order: twelve pointers, then b, n, k, thr and flags
+    offsets = [getattr(pb._Args, f).offset for f, _ in pb._Args._fields_]
+    assert offsets == [8 * i for i in range(12)] + [96, 100, 104, 108, 112,
+                                                    116]
+
+
+def _bad_bank_cases():
+    """(what, change to the arguments, the refusal's words)."""
+    def at(i, f):
+        return lambda a: a.__setitem__(i, f(a[i]))
+    return [
+        ("world half", at(0, lambda x: x.half()),
+         "world must be torch.float32 or torch.float64"),
+        ("obs int64", at(1, lambda x: x.long()),
+         "obs must be torch.float32 or torch.float64"),
+        ("idx int32", at(2, lambda x: x.int()), "idx must be torch.int64"),
+        ("mask float", at(3, lambda x: x.float()),
+         "valid_mask must be torch.bool"),
+        ("idx 2 columns", at(2, lambda x: x[..., :2].contiguous()),
+         r"idx must be \(3, 5, 3\)"),
+        ("idx of one stream", at(2, lambda x: x[0]), "idx must be"),
+        ("obs 3 columns", at(1, lambda x: torch.cat([x, x[..., :1]], -1)),
+         r"obs must be \(3, 7, 2\)"),
+        ("mask one short", at(3, lambda x: x[:, 1:].contiguous()),
+         r"valid_mask must be \(3, 7\)"),
+        ("world 2 columns", at(0, lambda x: x[..., :2].contiguous()),
+         r"world must be \[N, 3\] or \[B, N, 3\]"),
+        ("world 4-D", lambda a: [a.__setitem__(i, a[i][None].expand(
+            (2,) + a[i].shape).contiguous()) for i in range(4)],
+         r"world must be \[N, 3\] or \[B, N, 3\]"),
+        ("world transposed",
+         at(0, lambda x: x.transpose(-1, -2).contiguous().transpose(-1, -2)),
+         "world must be contiguous"),
+        ("idx strided", at(2, lambda x: torch.cat([x, x], -1)[..., ::2]),
+         "idx must be contiguous"),
+        ("not a tensor", at(1, lambda x: x.numpy()), "obs must be a tensor"),
+        ("no samples", at(2, lambda x: x[:, :0]), "at least one"),
+        ("no points", lambda a: [a.__setitem__(i, a[i][:, :0])
+                                 for i in (0, 1, 3)], "at least one"),
+        ("too many streams", lambda a: [a.__setitem__(i, a[i][:1].expand(
+            (65536,) + a[i].shape[1:]).contiguous()) for i in range(4)],
+         "at most 65535 streams"),
+    ]
+
+
+@pytest.mark.parametrize("what,change,match", _bad_bank_cases(),
+                         ids=[c[0] for c in _bad_bank_cases()])
+def test_pnp_bank_pack_refuses_what_the_kernel_does_not_take(what, change,
+                                                             match):
+    args = _bank_args((3,))
+    change(args)
+    with pytest.raises(ValueError, match=match):
+        pb._pack(*args, 1e-5)
+
+
+@pytest.mark.parametrize("bad", [-1, 7, 100])
+def test_pnp_bank_check_indices_refuses_what_lies_outside(bad):
+    """``check_indices`` takes indices in [0, N) and refuses one outside,
+    naming the range it found."""
+    idx = torch.randint(0, 7, (3, 5, 3),
+                        generator=torch.Generator().manual_seed(0))
+    pb.check_indices(idx, 7)
+    idx[1, 2, 0] = bad
+    with pytest.raises(ValueError, match=r"outside \[0, 7\) for 7 points"):
+        pb.check_indices(idx, 7)
+
+
+def _bank_problem(lead=(), n=60, seed=0):
+    """A PnP problem as the VO hands RANSAC one (float64 world points ahead
+    of an identity camera, their projections with 1e-3 noise and a fifth
+    of outliers, an eighth of the points masked)."""
+    rng = np.random.default_rng(seed)
+    world = np.concatenate([rng.uniform(-3, 3, lead + (n, 2)),
+                            rng.uniform(4, 8, lead + (n, 1))], -1)
+    obs = world[..., :2] / world[..., 2:] + rng.normal(0, 1e-3,
+                                                       lead + (n, 2))
+    obs = np.where(rng.uniform(size=lead + (n, 1)) < 0.2,
+                   rng.uniform(-0.6, 0.6, lead + (n, 2)), obs)
+    valid = rng.uniform(size=lead + (n,)) > 0.125
+    return (torch.from_numpy(world), torch.from_numpy(obs),
+            torch.from_numpy(valid))
+
+
+def _generators(lead):
+    if not lead:
+        return torch.Generator().manual_seed(3)
+    return [torch.Generator().manual_seed(3 + b) for b in range(lead[0])]
+
+
+@pytest.mark.parametrize("lead", [(), (3,)])
+@pytest.mark.parametrize("p3p", ["grunert", "finsterwalder"])
+def test_ransac_pnp_on_cpu_takes_the_plain_route(lead, p3p):
+    """CPU tensors (and Finsterwalder anywhere) never reach the kernel: no
+    launch, the plain route counted, and the bank is the generic
+    ``ransac`` on the same draws, bit for bit."""
+    from boofcv_tpu_torch.geo import robust
+    world, obs, valid = _bank_problem(lead)
+    robust.reset_bank_routes()
+    before = pb.launch_count()
+    res, _ = robust.ransac_pnp(_generators(lead), world, obs,
+                               num_hypotheses=32, inlier_threshold=4e-6,
+                               valid_mask=valid, refine_iterations=5,
+                               p3p=p3p)
+    assert pb.launch_count() == before
+    assert robust.bank_routes() == {"kernel": 0, "plain": 1}
+    plain = robust._plain_bank(_generators(lead), world, obs, 32, 4e-6,
+                               valid, p3p, None)
+    for a, b in zip(torch.utils._pytree.tree_leaves(res),
+                    torch.utils._pytree.tree_leaves(plain)):
+        assert torch.equal(a, b)
+    robust.reset_bank_routes()
+    assert robust.bank_routes() == {"kernel": 0, "plain": 0}
+
+
+def _fake_kernel(monkeypatch):
+    """``pnp_bank_cuda`` replaced by the plain route on what it is handed
+    (after the wrapper's own checks); returns the list of its calls'
+    arguments."""
+    from boofcv_tpu_torch.geo import robust
+    calls = []
+
+    def fake(world, obs, idx, valid, thr):
+        pb._pack(world, obs, idx, valid, thr)
+        calls.append((world, obs, idx, valid, thr))
+        r = robust._plain_bank(None, world, obs, idx.shape[-2], thr, valid,
+                               "grunert", idx)
+        return r.model, r.inliers, r.num_inliers, r.best_error
+    monkeypatch.setattr(pb, "pnp_bank_cuda", fake)
+    return calls
+
+
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_kernel_bank_draws_as_the_plain_route(lead, monkeypatch):
+    """What ``ransac_pnp``'s card route hands the kernel, shown on the CPU
+    with the kernel stood in for by the plain route: the same index sets
+    as the plain route draws from the same generators (so the same result,
+    bit for bit), inputs as they came, one call."""
+    from boofcv_tpu_torch.geo import robust
+    calls = _fake_kernel(monkeypatch)
+    world, obs, valid = _bank_problem(lead)
+    got = robust._kernel_bank(_generators(lead), world, obs, 32, 4e-6,
+                              valid, None)
+    want = robust._plain_bank(_generators(lead), world, obs, 32, 4e-6,
+                              valid, "grunert", None)
+    for a, b in zip(torch.utils._pytree.tree_leaves(got),
+                    torch.utils._pytree.tree_leaves(want)):
+        assert torch.equal(a, b)
+    (w, o, idx, v, thr), = calls
+    assert w is world and o is obs and v is valid and thr == 4e-6
+    assert idx.shape == lead + (32, 3) and idx.dtype == torch.int64
+
+
+def test_kernel_bank_reads_inputs_as_the_plain_route(monkeypatch):
+    """The card route reads what the plain route reads: world and obs in a
+    real dtype other than float32 and float64 as float32, a mask of one
+    stream beside B streams broadcast, a caller's index sets in any integer
+    dtype; a caller's index outside [0, N), or a bank of another size than
+    ``num_hypotheses``, is refused before the kernel."""
+    from boofcv_tpu_torch.geo import robust
+    calls = _fake_kernel(monkeypatch)
+    world, obs, valid = _bank_problem((3,))
+    idx = torch.randint(0, 60, (3, 16, 3), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(1))
+    robust._kernel_bank(None, world.half(), obs, 16, 4e-6, valid[0], idx)
+    (w, o, i, v, _), = calls
+    assert w.dtype == torch.float32 and o is obs
+    assert torch.equal(w, world.half().float())
+    assert v.shape == (3, 60) and v.is_contiguous()
+    assert torch.equal(v, valid[0].expand(3, 60))
+    assert i.dtype == torch.int64 and torch.equal(i, idx.long())
+    for bad, words in ((idx.clone().fill_(60), r"outside \[0, 60\)"),
+                       (idx[:, :8], r"must be \[\.\.\., 16, 3\]")):
+        with pytest.raises(ValueError, match=words):
+            robust._kernel_bank(None, world, obs, 16, 4e-6, valid, bad)
+    assert len(calls) == 1
+
+
+_BROKEN_BANKS = {
+    "transposed R": lambda R, t, ok, inl, c, e: (
+        (R.transpose(-1, -2), t, ok), inl, c, e),
+    "shifted t": lambda R, t, ok, inl, c, e: ((R, t + 1e-3, ok), inl, c, e),
+    "count": lambda R, t, ok, inl, c, e: ((R, t, ok), inl, c + 1, e),
+    "mask": lambda R, t, ok, inl, c, e: ((R, t, ok), ~inl, c, e),
+    "msac": lambda R, t, ok, inl, c, e: ((R, t, ok), inl, c, e * 1.001),
+}
+
+
+@pytest.mark.parametrize("lead", [(), (3,)])
+@pytest.mark.parametrize("broken", sorted(_BROKEN_BANKS))
+def test_bank_verdict_catches_a_broken_bank(lead, broken):
+    """``chip_smoke.bank_verdict``, the check of ``pnp_bank`` against its
+    plain route on the card, shown on the CPU with the plain route in the
+    kernel's place: the plain route passes against itself (each stream its
+    own winner, R and t exact), and a result with a transposed R, a
+    shifted t, another count, another mask or another MSAC fails."""
+    import chip_smoke as cs
+    from boofcv_tpu_torch.geo import robust
+    world, obs, valid, idx = cs._bank_scene("cpu", lead, n=100, k=40,
+                                            seed=2)
+    r = robust._plain_bank(None, world, obs, 40, cs.BANK_THR, valid,
+                           "grunert", idx)
+    (R, t, ok), inl, c, e = r.model, r.inliers, r.num_inliers, r.best_error
+    v = cs.bank_verdict(((R, t, ok), inl, c, e), world, obs, idx, valid)
+    streams = int(np.prod(lead))
+    assert v == {"streams": streams, "same_winner": streams,
+                 "near_ties": 0, "pose_err": 0.0, "mask_differ": 0}
+    with pytest.raises(cs.SmokeFailure, match="stream 0"):
+        cs.bank_verdict(_BROKEN_BANKS[broken](R, t, ok, inl, c, e), world,
+                        obs, idx, valid)
